@@ -1,0 +1,22 @@
+"""qwen2.5-14b — Qwen2.5-14B.
+
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064, QKV bias.
+[hf:Qwen/Qwen2.5-0.5B; hf]
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=13_824,
+    vocab_size=152_064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    notes="[hf:Qwen/Qwen2.5-0.5B; hf] GQA, QKV bias",
+)
