@@ -59,7 +59,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_rmsnorm.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     lib.repro_rmsnorm.restype = i
-    lib.repro_flash_attention.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+    lib.repro_flash_attention.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, p,
+                                          i, i, i, i, i, f, i, i, p]
     lib.repro_flash_attention.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,9 @@ int repro_rmsnorm_launch(int dtype, const void* x, const void* w, void* y, long 
 
 int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
-                                 int b, int sq, int sk, int h, int kv, float scale, int causal,
-                                 int static_diag, void* stream);
+                                 const int* block_tables, int nblocks, int page, int num_pages,
+                                 const int* win_start, int b, int sq, int sk, int h, int kv,
+                                 float scale, int causal, int static_diag, void* stream);
 
 extern "C" {
 
@@ -23,13 +24,16 @@ int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long ro
   return repro_rmsnorm_launch(dtype, x, w, y, rows, d, eps, stream);
 }
 
+// block_tables and win_start may be null (contiguous KV, no window).
 int repro_flash_attention(int dtype, int dh, const void* q, const void* k, const void* v,
-                          void* o, const void* kv_len, const void* q_start, int b, int sq,
-                          int sk, int h, int kv, float scale, int causal, int static_diag,
-                          void* stream) {
-  return repro_flash_attention_launch(dtype, dh, q, k, v, o, static_cast<const int*>(kv_len),
-                                      static_cast<const int*>(q_start), b, sq, sk, h, kv, scale,
-                                      causal, static_diag, stream);
+                          void* o, const void* kv_len, const void* q_start,
+                          const void* block_tables, int nblocks, int page, int num_pages,
+                          const void* win_start, int b, int sq, int sk, int h, int kv,
+                          float scale, int causal, int static_diag, void* stream) {
+  return repro_flash_attention_launch(
+      dtype, dh, q, k, v, o, static_cast<const int*>(kv_len), static_cast<const int*>(q_start),
+      static_cast<const int*>(block_tables), nblocks, page, num_pages,
+      static_cast<const int*>(win_start), b, sq, sk, h, kv, scale, causal, static_diag, stream);
 }
 
 const char* repro_error_string(int code) {

@@ -1,23 +1,42 @@
-// GQA flash attention with an online softmax, contiguous full-precision KV.
+// GQA flash attention with an online softmax, full-precision KV, over a
+// contiguous cache or a paged one, with an optional sliding window.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) in its contiguous, unquantized,
-// unwindowed form.  On the TPU the grid's minor kv axis runs in order on
-// one core and carries (m, l, acc) in VMEM scratch; on Hopper the blocks
-// run in parallel in no order, so one thread block owns one
-// (batch, head, q-block) and walks the key blocks itself, keeping m, l and
-// acc in registers (fp32).
+// flash_attention (_flash_kernel) in its contiguous and paged
+// (block_tables), full and windowed (window), unquantized forms.  On the
+// TPU the grid's minor kv axis runs in order on one core and carries
+// (m, l, acc) in VMEM scratch; on Hopper the blocks run in parallel in no
+// order, so one thread block owns one (batch, head, q-block) and walks the
+// key blocks itself, keeping m, l and acc in registers (fp32).
 //
 // Semantics reproduced from the Pallas kernel:
 //   * head hi reads KV head hi / group;
 //   * scores are masked to -1e30 where k_pos >= kv_len or, when causal,
-//     k_pos > q_pos + q_start (q_start per batch row);
+//     k_pos > q_pos + q_start (q_start per batch row), or, when windowed,
+//     k_pos < q_pos + ws with the per-row window start
+//     ws = kv_len - Sq - W + 1 (the wrapper computes the row);
 //   * V rows at k_row >= kv_len are loaded as 0 before p.V (the
 //     out-of-bounds NaN fault the attention grid once caught);
 //   * key blocks with k_start >= kv_len are skipped, and, when q_start is
 //     static (whole-prompt prefill, q_start = Sk - Sq), blocks above the
-//     causal diagonal too;
+//     causal diagonal too; when windowed, blocks wholly below the q-block's
+//     lowest window start (q0 + ws) are skipped, which turns a long-KV
+//     decode into O(W / 64) tiles;
 //   * the output is acc / max(l, 1e-30), stored in q's dtype.
+//
+// Paged KV: k/v are (P, page, KV, Dh) pools and logical key p of row b
+// lives at pool[table[b, p / page], p % page].  The Pallas kernel resolves
+// one page per grid step in its index map, so it clamps block_k to divide
+// the page; here the address is translated per key row as the tile is
+// loaded (a row-offset table in shared memory, built one tile ahead), so a
+// 64-key tile may span pages of any size.  Masking stays in logical
+// coordinates.  Unallocated entries point at the park page 0: they are
+// read and masked like any row past kv_len.  Rows below the q-block's
+// lowest window start are neither loaded nor multiplied (K and V stay 0),
+// so the straddling tile never touches a parked or recycled page's data.
+// With W >= kv_len that bound is <= 0: the windowed launch does exactly
+// the unwindowed launch's loads and arithmetic, and its output is
+// bit-identical.
 //
 // Layout of one block: BQ query rows of TPR threads each, 256 threads —
 // 64 rows of 4 for prefill and chunks, 16 rows of 16 for decode-sized
@@ -33,7 +52,7 @@
 // Bound on the H100: prefill and chunked prefill at Dh = 128 do ~2 * Dh
 // operations per key byte and are compute-bound once the products run on
 // the tensor cores; decode (one query per row) is bound by reading the
-// KV cache, B * kv_len * KV * Dh * 2 * sizeof(T) bytes.  This first
+// KV cache, B * min(W, kv_len) * KV * Dh * 2 * sizeof(T) bytes.  This
 // version uses plain fp32 FMAs (no wgmma/TMA) and is far from either
 // bound; decode wastes the 15 spare rows of its 16-row query block, and
 // each of a GQA group's heads reads the group's K/V again.
@@ -44,27 +63,66 @@ namespace {
 constexpr int kBK = 64;        // keys per shared-memory tile
 constexpr float kNegInf = -1e30f;
 
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  const int* kv_len;        // (B,)
+  const int* q_start;       // (B,)
+  const int* block_tables;  // (B, nblocks) physical pages, or null: contiguous
+  const int* win_start;     // (B,) window start rows, or null: unwindowed
+  int sq, sk, h, kv;        // sk: logical key extent (nblocks * page when paged)
+  int page, num_pages, nblocks;
+  float scale;
+  int causal, static_diag;
+};
+
 template <int DH, int BQ>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(BQ * (DH + 1) + kBK * (DH + 1) + kBK * DH) * sizeof(float);
 }
 
+// Element offset of logical key row `krow` of batch row `bi` (KV head 0,
+// column 0), or -1 when the row is not to be loaded: past the logical
+// extent, below `klo`, or mapped to a page outside the pool.
+__device__ __forceinline__ long long key_row(const Params& p, const int* tbl, int bi, int krow,
+                                             int klo) {
+  if (krow >= p.sk || krow < klo) return -1;
+  long long row;
+  if (tbl != nullptr) {
+    const int pg = tbl[krow / p.page];
+    if (pg < 0 || pg >= p.num_pages) return -1;
+    row = static_cast<long long>(pg) * p.page + krow % p.page;
+  } else {
+    row = static_cast<long long>(bi) * p.sk + krow;
+  }
+  return row * p.kv;
+}
+
 // BQ query rows per block, TPR threads per row (BQ * TPR = 256 threads).
+// Two blocks per SM is what the 64-row layout's shared memory allows; the
+// bound lets ptxas spend up to 128 registers a thread (it picked 64-80
+// without it).  With the restrict-qualified K/V pointers it took the paged
+// and windowed kernel back to the contiguous-only version's chunk times
+// (PERF.md).
 template <typename T, int DH, int BQ, int TPR>
-__global__ void __launch_bounds__(BQ * TPR)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, const int* __restrict__ kv_len,
-             const int* __restrict__ q_start, int sq, int sk, int h, int kv, int group,
-             float scale, int causal, int static_diag) {
+__global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   constexpr int NT = BQ * TPR;
   constexpr int NS = kBK / TPR;    // scores per thread per key tile
   constexpr int ND = DH / TPR;     // output columns per thread
   constexpr int VN = repro::VecLoad<T>::N;
+  static_assert(NT >= kBK, "one thread per key row builds the row-offset table");
   extern __shared__ float smem[];
   float* q_s = smem;                         // [BQ][DH + 1]
   float* k_s = q_s + BQ * (DH + 1);          // [kBK][DH + 1]
   float* v_s = k_s + kBK * (DH + 1);         // [kBK][DH]
+  __shared__ long long row_off[kBK];         // the next tile's key rows (key_row)
 
+  const T* __restrict__ q = static_cast<const T*>(p.q);
+  const T* __restrict__ k = static_cast<const T*>(p.k);
+  const T* __restrict__ v = static_cast<const T*>(p.v);
+  const int sq = p.sq, h = p.h;
   const int tid = threadIdx.x;
   const int r = tid / TPR;                   // query row within the block
   const int c = tid % TPR;                   // column phase within the row
@@ -72,10 +130,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int q0 = blockIdx.x * BQ;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
-  const int kvh = hi / group;
-  const int kvl = kv_len[bi];
-  const int qs = q_start[bi];
+  const int kvh = hi / (h / p.kv);
+  const int kvl = p.kv_len[bi];
+  const int qs = p.q_start[bi];
   const int qpos = q0 + r;
+  const bool windowed = p.win_start != nullptr;
+  const int ws = windowed ? p.win_start[bi] : 0;
+  // keys below the block's lowest window start are dead for all its rows
+  const int klo = windowed ? q0 + ws : 0;
+  const int* tbl = p.block_tables != nullptr
+                       ? p.block_tables + static_cast<long long>(bi) * p.nblocks
+                       : nullptr;
 
   for (int idx = tid; idx < BQ * DH / VN; idx += NT) {
     const int e = idx * VN;
@@ -90,30 +155,34 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int j = 0; j < VN; ++j) vals[j] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < VN; ++j) q_s[rr * (DH + 1) + dd + j] = vals[j] * scale;
+    for (int j = 0; j < VN; ++j) q_s[rr * (DH + 1) + dd + j] = vals[j] * p.scale;
   }
 
-  int kend = min(kvl, sk);
-  if (causal && static_diag) kend = min(kend, q0 + (sk - sq) + BQ);
+  int kend = min(kvl, p.sk);
+  if (p.causal && p.static_diag) kend = min(kend, q0 + (p.sk - sq) + BQ);
   const int nkb = kend > 0 ? (kend + kBK - 1) / kBK : 0;
+  const int kb0 = klo > 0 ? klo / kBK : 0;   // first tile holding a live key
+
+  if (tid < kBK) row_off[tid] = key_row(p, tbl, bi, kb0 * kBK + tid, klo);
 
   float m = kNegInf, l = 0.f;
   float acc[ND];
 #pragma unroll
   for (int j = 0; j < ND; ++j) acc[j] = 0.f;
 
-  for (int kb = 0; kb < nkb; ++kb) {
+  for (int kb = kb0; kb < nkb; ++kb) {
     const int k0 = kb * kBK;
-    __syncthreads();  // Q stored / previous tile consumed
+    __syncthreads();  // Q and row offsets stored / previous tile consumed
     for (int idx = tid; idx < kBK * DH / VN; idx += NT) {
       const int e = idx * VN;
       const int jj = e / DH, dd = e % DH;
       const int krow = k0 + jj;
+      const long long ro = row_off[jj];
       float kvals[VN], vvals[VN];
 #pragma unroll
       for (int j = 0; j < VN; ++j) kvals[j] = vvals[j] = 0.f;
-      if (krow < sk) {
-        const long long off = ((static_cast<long long>(bi) * sk + krow) * kv + kvh) * DH + dd;
+      if (ro >= 0) {
+        const long long off = (ro + kvh) * DH + dd;
         repro::VecLoad<T>::load(k + off, kvals);
         if (krow < kvl) repro::VecLoad<T>::load(v + off, vvals);  // rows past kv_len stay 0
       }
@@ -124,6 +193,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       }
     }
     __syncthreads();
+    // the next tile's row offsets: row_off is not read again before the
+    // barrier at the top of the next iteration
+    if (tid < kBK) row_off[tid] = key_row(p, tbl, bi, k0 + kBK + tid, klo);
 
     float s[NS];
 #pragma unroll
@@ -139,8 +211,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int kpos = k0 + c + TPR * i;
-      bool ok = kpos < kvl && kpos < sk;
-      if (causal) ok = ok && kpos <= qpos + qs;
+      bool ok = kpos < kvl && kpos < p.sk;
+      if (p.causal) ok = ok && kpos <= qpos + qs;
+      if (windowed) ok = ok && kpos >= qpos + ws;
       s[i] = ok ? s[i] : kNegInf;
       mx = fmaxf(mx, s[i]);
     }
@@ -164,10 +237,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = 0; i < NS; ++i) {
 #pragma unroll
       for (int src = 0; src < TPR; ++src) {
-        const float p = __shfl_sync(0xffffffffu, s[i], base + src);
+        const float pr = __shfl_sync(0xffffffffu, s[i], base + src);
         const float* vrow = v_s + (src + TPR * i) * DH + c;
 #pragma unroll
-        for (int j = 0; j < ND; ++j) acc[j] = fmaf(p, vrow[TPR * j], acc[j]);
+        for (int j = 0; j < ND; ++j) acc[j] = fmaf(pr, vrow[TPR * j], acc[j]);
       }
     }
     m = m_new;
@@ -175,51 +248,38 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   if (qpos < sq) {
     const float den = fmaxf(l, 1e-30f);
-    T* orow = o + ((static_cast<long long>(bi) * sq + qpos) * h + hi) * DH + c;
+    T* orow = static_cast<T*>(p.o) + ((static_cast<long long>(bi) * sq + qpos) * h + hi) * DH + c;
 #pragma unroll
     for (int j = 0; j < ND; ++j) orow[TPR * j] = repro::from_float<T>(acc[j] / den);
   }
 }
 
 template <typename T, int DH, int BQ, int TPR>
-int launch(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-           const int* q_start, int b, int sq, int sk, int h, int kv, float scale, int causal,
-           int static_diag, cudaStream_t stream) {
+int launch(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH, BQ>();
   auto kernel = &flash_kernel<T, DH, BQ, TPR>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kernel<<<grid, BQ * TPR, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), kv_len, q_start, sq, sk, h, kv, h / kv, scale, causal, static_diag);
+  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, b);
+  kernel<<<grid, BQ * TPR, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DH>
-int launch_rows(const void* q, const void* k, const void* v, void* o, const int* kv_len,
-                const int* q_start, int b, int sq, int sk, int h, int kv, float scale,
-                int causal, int static_diag, cudaStream_t stream) {
+int launch_rows(const Params& p, int b, cudaStream_t stream) {
   // decode-sized launches: 16 rows of 16 threads; otherwise 64 rows of 4
-  if (sq <= 16)
-    return launch<T, DH, 16, 16>(q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale, causal,
-                                 static_diag, stream);
-  return launch<T, DH, 64, 4>(q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale, causal,
-                              static_diag, stream);
+  if (p.sq <= 16) return launch<T, DH, 16, 16>(p, b, stream);
+  return launch<T, DH, 64, 4>(p, b, stream);
 }
 
 template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v, void* o, const int* kv_len,
-              const int* q_start, int b, int sq, int sk, int h, int kv, float scale, int causal,
-              int static_diag, cudaStream_t stream) {
+int launch_dh(int dh, const Params& p, int b, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_rows<T, 64>(q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale, causal,
-                                static_diag, stream);
+      return launch_rows<T, 64>(p, b, stream);
     case 128:
-      return launch_rows<T, 128>(q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale, causal,
-                                 static_diag, stream);
+      return launch_rows<T, 128>(p, b, stream);
     default:
       return -1;
   }
@@ -227,24 +287,27 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o, cons
 
 }  // namespace
 
-// q (B, Sq, H, Dh), k/v (B, Sk, KV, Dh), o (B, Sq, H, Dh), all contiguous;
-// kv_len and q_start are (B,) int32 on the device; q, k, v and o are
-// 16-byte aligned.  Launches on `stream`;
-// returns the cudaError_t of the launch (0 = ok) or -1 for an unsupported
-// dtype code or head_dim.
+// q (B, Sq, H, Dh) and o (B, Sq, H, Dh) contiguous; k/v contiguous, either
+// (B, Sk, KV, Dh) with block_tables null, or paged pools (P, page, KV, Dh)
+// with block_tables a (B, nblocks) int32 table on the device and
+// Sk = nblocks * page the logical extent.  kv_len, q_start and (when not
+// null) win_start are (B,) int32 on the device; q, k, v and o are 16-byte
+// aligned.  Launches on `stream`; returns the cudaError_t of the launch
+// (0 = ok) or -1 for an unsupported dtype code or head_dim.
 int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
-                                 int b, int sq, int sk, int h, int kv, float scale, int causal,
-                                 int static_diag, void* stream) {
+                                 const int* block_tables, int nblocks, int page, int num_pages,
+                                 const int* win_start, int b, int sq, int sk, int h, int kv,
+                                 float scale, int causal, int static_diag, void* stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
+  const Params p{q,  k,  v,  o,    kv_len,    q_start, block_tables, win_start, sq,
+                 sk, h,  kv, page, num_pages, nblocks, scale,        causal,    static_diag};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch_dh<float>(dh, q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale, causal,
-                              static_diag, s);
+      return launch_dh<float>(dh, p, b, s);
     case repro::kBFloat16:
-      return launch_dh<__nv_bfloat16>(dh, q, k, v, o, kv_len, q_start, b, sq, sk, h, kv, scale,
-                                      causal, static_diag, s);
+      return launch_dh<__nv_bfloat16>(dh, p, b, s);
     default:
       return -1;
   }

@@ -1,15 +1,23 @@
 """Flash attention on the card: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention`` in its contiguous,
-full-precision form.  One kernel serves the three serving geometries
-through the adapters in kernels/ops.py:
+``repro/kernels/flash_attention.py::flash_attention`` in its contiguous
+and paged, full and sliding-window, full-precision forms.  One kernel
+serves the three serving geometries through the adapters in
+kernels/ops.py:
 
   * prefill  — ``kv_len = Sk``, ``q_start = Sk - Sq`` (static diagonal:
     blocks above it are skipped);
   * decode   — ``Sq == 1``, per-row ``kv_len = pos + 1``, not causal;
   * chunked prefill — ``Sq == C`` queries at ``q_start = pos`` against the
     cache, ``kv_len = pos + C``.
+
+Paged KV (``block_tables``): k/v are (P, page, KV, Dh) pools and logical
+key p of batch row b lives at ``pool[block_tables[b, p // page], p % page]``;
+the kernel translates addresses per key row, so a tile may span pages of
+any size.  Sliding window (``window`` W): the wrapper adds the per-row
+window start ``ws = kv_len - Sq - W + 1`` and query i attends keys
+``>= ws + i`` only; key tiles wholly below the window are skipped.
 
 The arguments are checked as the kernel needs them on either device
 (dtype, shapes, one device, layout); then a CUDA tensor launches the
@@ -42,20 +50,52 @@ def _rows(x, default: int, b: int, device) -> torch.Tensor:
     return t.expand(b).contiguous()
 
 
+def _check_table(block_tables, page_size, q: torch.Tensor, k: torch.Tensor) -> int:
+    """Check a paged call's table against q and the pools; returns the page."""
+    b = q.shape[0]
+    page = k.shape[1] if page_size is None else page_size
+    if k.shape[1] != page:
+        raise ValueError(f"flash_attention: pool page {k.shape[1]} != page_size {page}")
+    if not isinstance(block_tables, torch.Tensor) or block_tables.dtype != torch.int32:
+        raise TypeError("flash_attention: block_tables must be an int32 tensor")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"flash_attention: block_tables of shape "
+                         f"{tuple(block_tables.shape)} for batch {b}")
+    if block_tables.device != q.device:
+        raise ValueError("flash_attention: block_tables must be on q's device")
+    if not block_tables.is_contiguous():
+        raise ValueError("flash_attention: block_tables must be contiguous")
+    return page
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len=None, q_start=None, *, causal: bool = True,
-                    scale: float | None = None, op: str = "attention") -> torch.Tensor:
+                    scale: float | None = None, op: str = "attention",
+                    block_tables: torch.Tensor | None = None, page_size: int | None = None,
+                    window=None) -> torch.Tensor:
     """q (B, Sq, H, Dh), k/v (B, Sk, KV, Dh) -> (B, Sq, H, Dh) in q's dtype.
 
     kv_len: () or (B,) int — keys at positions >= kv_len are masked
     (None -> Sk).  q_start: () or (B,) int — global position of query 0
     for the causal mask (None -> Sk - Sq, the static prefill diagonal).
+    block_tables: (B, nblocks) int32 on q's device — k/v are then
+    (P, page, KV, Dh) pools (page_size: None -> k.shape[1]) and
+    Sk = nblocks * page.  window: int, () or (B,) int — sliding-window width.
     """
     b, sq, h, dh = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    kv = k.shape[2]
+    paged = block_tables is not None
+    if paged:
+        page = _check_table(block_tables, page_size, q, k)
+        nblocks = block_tables.shape[1]
+        sk = nblocks * page
+        want = (k.shape[0], page, kv, dh)
+    else:
+        sk, nblocks, page = k.shape[1], 0, 0
+        want = (b, sk, kv, dh)
     if h % kv:
         raise ValueError(f"GQA requires H % KV == 0, got {h} % {kv}")
-    if k.shape != (b, sk, kv, dh) or v.shape != k.shape:
+    if k.shape != want or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
     scale = dh ** -0.5 if scale is None else scale
@@ -69,8 +109,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_layout("flash_attention", q, k, v)
     kv_len = _rows(kv_len, sk, b, q.device)
     q_start = _rows(q_start, sk - sq, b, q.device)
+    win_start = None
+    if window is not None:
+        # ws = kv_len - Sq - W + 1; a width past Sk + Sq masks nothing more,
+        # and clamping it there keeps ws inside int32
+        if isinstance(window, int):
+            win_start = kv_len - (min(window, sk + sq) + sq - 1)
+        else:
+            win_start = kv_len - _rows(window, 0, b, q.device).clamp(max=sk + sq) - (sq - 1)
     if q.device.type == "cpu":
-        return masked_attention_ref(q, k, v, kv_len, q_start, causal=causal, scale=scale)
+        return masked_attention_ref(q, k, v, kv_len, q_start, causal=causal, scale=scale,
+                                    block_tables=block_tables, win_start=win_start)
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} not supported on the card "
                          f"(built for {HEAD_DIMS})")
@@ -79,8 +128,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
             code, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_len.data_ptr(), q_start.data_ptr(), b, sq, sk, h, kv, float(scale),
-            int(causal), int(static_diag), _build.stream_of(q))
+            kv_len.data_ptr(), q_start.data_ptr(),
+            block_tables.data_ptr() if paged else None, nblocks, page,
+            k.shape[0] if paged else 0,
+            None if win_start is None else win_start.data_ptr(),
+            b, sq, sk, h, kv, float(scale), int(causal), int(static_diag), _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     _build.LAUNCHES[op] += 1
     return out

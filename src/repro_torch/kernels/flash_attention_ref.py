@@ -13,14 +13,14 @@ Shapes:
   v: (B, Sk, KV, Dh)     with H % KV == 0; head h reads KV head h // (H // KV)
 Returns (B, Sq, H, Dh).
 
-Only the contiguous, full-precision forms are ported: the paged
-(``block_table``), sliding-window (``window``) and quantized-KV
-(``k_scale``/``v_scale``) arguments of the decode and chunk references
-raise NotImplementedError.
+The decode and chunk references take the paged (``block_table``: the
+caches are (P, page, KV, Dh) pools gathered per row, `_gather_pages`) and
+sliding-window (``window``) forms; only the quantized-KV form
+(``k_scale``/``v_scale``) is not ported and raises NotImplementedError.
 
 `masked_attention_ref` is the plain version of the flash kernel's own
-signature (per-batch ``kv_len`` and ``q_start``): the kernel wrapper takes
-it for tensors on the CPU.
+signature (per-batch ``kv_len``, ``q_start`` and window-start rows, paged
+or contiguous K/V): the kernel wrapper takes it for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["attention_ref", "chunk_attention_ref", "decode_attention_ref",
-           "masked_attention_ref"]
+           "masked_attention_ref", "windowed_attention_ref"]
 
 _NEG = -1e30
 
@@ -87,13 +87,51 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _plain(q, k, v, causal, scale)
 
 
-def _contiguous_only(block_table, window, k_scale, v_scale) -> None:
-    for name, arg in (("block_table", block_table), ("window", window),
-                      ("k_scale", k_scale), ("v_scale", v_scale)):
+def windowed_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, *,
+                           scale: float | None = None) -> torch.Tensor:
+    """Sliding-window causal attention.
+
+    Query at global position g attends keys in (g - window, g]: the causal
+    mask plus a lower bound `window` wide.  Global query positions follow
+    the prefill alignment (query i sits at i + Sk - Sq), so with window >= Sk
+    this is exactly `attention_ref(..., causal=True)`.
+    window: int, () or (B,) int.
+    """
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(b, sq, kv, group, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg * scale, k).float()
+    qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)          # (Sq, 1)
+    ki = torch.arange(sk, device=q.device)[None, :]                      # (1, Sk)
+    w = _per_row(window, b, q.device)
+    mask = (ki <= qi)[None] & (ki > qi - w[:, None, None])               # (B, Sq, Sk)
+    scores = torch.where(mask[:, None, None], scores, float("-inf"))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(b, sq, h, dh)
+
+
+def _per_row(x, b: int, device) -> torch.Tensor:
+    """int, () or (B,) int -> a (B,) int64 tensor."""
+    return torch.as_tensor(x, device=device).long().expand(b)
+
+
+def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """(P, page, KV, Dh) pool + (B, nblocks) table -> the logical
+    (B, nblocks * page, KV, Dh) cache each batch row sees."""
+    b, n = block_table.shape
+    page = pool.shape[1]
+    return pool[block_table.long()].reshape(b, n * page, *pool.shape[2:])
+
+
+def _full_precision_only(k_scale, v_scale) -> None:
+    for name, arg in (("k_scale", k_scale), ("v_scale", v_scale)):
         if arg is not None:
             raise NotImplementedError(
-                f"{name}: the paged, windowed and quantized-KV attention forms "
-                "are not ported yet")
+                f"{name}: the quantized-KV attention form is not ported yet")
 
 
 def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
@@ -102,9 +140,17 @@ def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None
 
     q: (B, 1, H, Dh); caches: (B, Smax, KV, Dh); pos: int, () or (B,) int —
     the index of the new token, per batch row when a vector; keys at
-    positions > pos are masked (cache slots not yet written).
+    positions > pos are masked (cache slots not yet written).  With
+    `block_table` ((B, nblocks) int) the caches are page pools
+    (P, page, KV, Dh) and each row's logical cache is gathered through its
+    table row first.  `window` (int, () or (B,) int) additionally masks
+    keys at positions <= pos - window: only the trailing `window` cache
+    slots are attended.
     """
-    _contiguous_only(block_table, window, k_scale, v_scale)
+    _full_precision_only(k_scale, v_scale)
+    if block_table is not None:
+        k_cache = _gather_pages(k_cache, block_table)
+        v_cache = _gather_pages(v_cache, block_table)
     b, _, h, dh = q.shape
     kv = k_cache.shape[2]
     group = h // kv
@@ -114,7 +160,10 @@ def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None
     qg = q.reshape(b, kv, group, dh)
     scores = torch.einsum("bkgd,bskd->bkgs", qg * scale, k_cache).float()
     ki = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, :]
-    scores = torch.where(ki <= lim, scores, float("-inf"))
+    valid = ki <= lim
+    if window is not None:
+        valid = valid & (ki > lim - _per_row(window, b, q.device).reshape(-1, 1, 1, 1))
+    scores = torch.where(valid, scores, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
@@ -128,9 +177,15 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     q: (B, C, H, Dh), already rotary-encoded at global positions
     pos..pos+C-1; caches: (B, Smax, KV, Dh) with the chunk's keys/values
     already written there.  Query i attends cache keys <= pos + i.
-    pos: int, () or (B,) int.
+    pos: int, () or (B,) int.  With `block_table` ((B, nblocks) int) the
+    caches are page pools (P, page, KV, Dh), gathered per row as in
+    `decode_attention_ref`.  `window` (int, () or (B,) int) additionally
+    masks keys at positions <= pos + i - window.
     """
-    _contiguous_only(block_table, window, k_scale, v_scale)
+    _full_precision_only(k_scale, v_scale)
+    if block_table is not None:
+        k_cache = _gather_pages(k_cache, block_table)
+        v_cache = _gather_pages(v_cache, block_table)
     b, c, h, dh = q.shape
     kv = k_cache.shape[2]
     group = h // kv
@@ -142,6 +197,9 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg * scale, k_cache).float()
     ki = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
     valid = ki <= lim[..., None]                                         # (B|1, C, S)
+    if window is not None:
+        w = _per_row(window, b, q.device)
+        valid = valid & (ki > (lim - w[:, None])[..., None])
     scores = torch.where(valid[:, None, None], scores, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
@@ -149,26 +207,35 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     return out.reshape(b, c, h, dh).to(q.dtype)
 
 
-def masked_attention_ref(q, k, v, kv_len, q_start, *, causal: bool,
-                         scale: float) -> torch.Tensor:
+def masked_attention_ref(q, k, v, kv_len, q_start, *, causal: bool, scale: float,
+                         block_tables=None, win_start=None) -> torch.Tensor:
     """The flash kernel's function in plain PyTorch, fp32 throughout.
 
     kv_len, q_start: (B,) int tensors.  Query i of row b (global position
     q_start[b] + i) sees keys j < kv_len[b] and, when causal,
-    j <= q_start[b] + i; V rows at j >= kv_len[b] count as zero.
+    j <= q_start[b] + i, and, with the (B,) window-start row `win_start`,
+    j >= win_start[b] + i.  V rows at j >= kv_len[b] or j < win_start[b]
+    count as zero.  With `block_tables` ((B, nblocks) int) k/v are
+    (P, page, KV, Dh) pools, gathered per row first.
     """
+    if block_tables is not None:
+        k, v = _gather_pages(k, block_tables), _gather_pages(v, block_tables)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     group = h // kv
     qg = q.reshape(b, sq, kv, group, dh).float() * scale
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     ki = torch.arange(sk, device=q.device)
-    mask = (ki[None, :] < kv_len[:, None])[:, None, :]                  # (B, 1, Sk)
+    qi = torch.arange(sq, device=q.device)[None, :, None]
+    live = ki[None, :] < kv_len[:, None]                                # (B, Sk)
+    mask = live[:, None, :]                                             # (B, 1, Sk)
     if causal:
-        qi = torch.arange(sq, device=q.device)[None, :, None] + q_start[:, None, None]
-        mask = mask & (ki[None, None, :] <= qi)                         # (B, Sq, Sk)
+        mask = mask & (ki[None, None, :] <= qi + q_start[:, None, None])  # (B, Sq, Sk)
+    if win_start is not None:
+        mask = mask & (ki[None, None, :] >= qi + win_start[:, None, None])
+        live = live & (ki[None, :] >= win_start[:, None])
     s = torch.where(mask[:, None, None], s, _NEG)
-    vf = torch.where((ki[None, :] < kv_len[:, None])[..., None, None], v.float(), 0.0)
+    vf = torch.where(live[..., None, None], v.float(), 0.0)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     out = out / torch.clamp_min(p.sum(dim=-1), 1e-30).permute(0, 3, 1, 2)[..., None]

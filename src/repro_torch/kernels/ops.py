@@ -6,13 +6,17 @@ built against either package names the same ABI strings — and registers
 what this port implements:
 
   * a plain PyTorch reference (provider ``torch-ref``) for ``rmsnorm``,
-    ``attention``, ``chunk_attention`` and ``decode_attention``;
-  * the hand-written CUDA kernels (provider ``cuda``) for the same four,
+    ``attention``, ``windowed_attention``, ``chunk_attention`` and
+    ``decode_attention`` (the last two in their contiguous and paged, full
+    and windowed forms);
+  * the hand-written CUDA kernels (provider ``cuda``) for the same five,
     behind the ``cuda_kernels`` platform feature.  Binding one builds the
     kernel library.
 
-``windowed_attention``, ``ssd_scan``, ``moe_gmm`` and ``quant_matmul``
-are declared but not ported yet: a deployment lists them as unported.
+``ssd_scan``, ``moe_gmm`` and ``quant_matmul`` are declared but not
+ported yet: a deployment lists them as unported.  The quantized-KV form
+of decode and chunk attention (``k_scale``/``v_scale``) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from repro_torch.core.registry import ImplKind, OpImpl, OpRegistry, global_regis
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_ref import (
-    _contiguous_only,
+    _full_precision_only,
     attention_ref,
     chunk_attention_ref,
     decode_attention_ref,
+    windowed_attention_ref,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm_ref import rmsnorm_ref
@@ -132,12 +137,23 @@ def _cuda_attention(q, k, v, *, causal=True, scale=None):
     return flash_attention(q, k, v, causal=causal, scale=scale, op="attention")
 
 
+def _cuda_windowed_attention(q, k, v, window, *, scale=None):
+    # sliding-window causal prefill: the full-attention geometry plus a
+    # window width — the wrapper adds the window-start row
+    return flash_attention(q, k, v, window=window, causal=True, scale=scale,
+                           op="windowed_attention")
+
+
 def _cuda_decode_attention(q, k_cache, v_cache, pos, block_tables=None, window=None,
                            k_scale=None, v_scale=None, *, scale=None):
-    # decode = flash with Sq=1 over the written prefix of the cache
-    _contiguous_only(block_tables, window, k_scale, v_scale)
-    return flash_attention(q, k_cache, v_cache, kv_len=pos + 1, causal=False,
-                           scale=scale, op="decode_attention")
+    # decode = flash with Sq=1 over the written prefix of the cache; with
+    # block_tables the caches are page pools (page = the pool's second
+    # dim); with window only the trailing `window` slots are attended
+    _full_precision_only(k_scale, v_scale)
+    page = k_cache.shape[1] if block_tables is not None else None
+    return flash_attention(q, k_cache, v_cache, kv_len=pos + 1, causal=False, scale=scale,
+                           window=window, block_tables=block_tables, page_size=page,
+                           op="decode_attention")
 
 
 def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=None,
@@ -145,9 +161,11 @@ def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=No
     # chunked prefill = flash with the causal diagonal re-anchored at pos:
     # query i (global position pos+i) sees cache keys <= pos+i, and the
     # kv_len mask hides slots past the chunk's own freshly written tail
-    _contiguous_only(block_tables, window, k_scale, v_scale)
+    _full_precision_only(k_scale, v_scale)
+    page = k_cache.shape[1] if block_tables is not None else None
     return flash_attention(q, k_cache, v_cache, kv_len=pos + q.shape[1], q_start=pos,
-                           causal=True, scale=scale, op="chunk_attention")
+                           causal=True, scale=scale, window=window,
+                           block_tables=block_tables, page_size=page, op="chunk_attention")
 
 
 def _ref_attention(q, k, v, *, causal=True, scale=None):
@@ -156,9 +174,14 @@ def _ref_attention(q, k, v, *, causal=True, scale=None):
     return attention_ref(q, k, v, causal=causal, scale=scale, chunk_kv=chunk)
 
 
+def _ref_windowed_attention(q, k, v, window, *, scale=None):
+    return windowed_attention_ref(q, k, v, window, scale=scale)
+
+
 _REFS = {
     "rmsnorm": rmsnorm_ref,
     "attention": _ref_attention,
+    "windowed_attention": _ref_windowed_attention,
     "decode_attention": decode_attention_ref,
     "chunk_attention": chunk_attention_ref,
 }
@@ -166,6 +189,7 @@ _REFS = {
 _NATIVES = {
     "rmsnorm": rmsnorm,
     "attention": _cuda_attention,
+    "windowed_attention": _cuda_windowed_attention,
     "decode_attention": _cuda_decode_attention,
     "chunk_attention": _cuda_chunk_attention,
 }

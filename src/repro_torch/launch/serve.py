@@ -1,7 +1,7 @@
 """Serving engine on PyTorch: chunked prefill + continuous batching.
 
-The port of `repro/launch/serve.py` for the contiguous KV cache.  Its
-parts:
+The port of `repro/launch/serve.py` for the full-precision KV cache,
+contiguous or paged, with optional sliding windows.  Its parts:
 
   * `Request`, `BlockAllocator`, `PagedPool`, `Scheduler` — the JAX
     package's pure-Python scheduling policy, copied verbatim (the tests
@@ -10,13 +10,16 @@ parts:
     ``prefill_unit``, ``prefill_step`` (one C-token chunk into one slot,
     `Model.prefill_into`; or one token through a whole-batch decode tick
     in the ``"decode"`` baseline mode) and ``decode_step`` (one batched
-    tick, `Model.decode`).  The paged cache, sliding windows and
-    quantized serving are not ported yet and raise NotImplementedError.
+    tick, `Model.decode`), over a contiguous cache or, with ``paged=True``,
+    page pools addressed through a `PagedPool`'s block tables, and with
+    ``window=W`` sliding-window attention; ``export_slot``/``import_slot``
+    move one slot's pages (the fleet's KV handoff).  Quantized serving is
+    not ported yet and raises NotImplementedError.
   * `Server` and `main` — the JAX package's facade and CLI, plus
     ``--device``.
 
 Every op the model calls goes through the container's binding, so on the
-card rmsnorm and the three attention ops run the CUDA kernels.
+card rmsnorm and the attention ops run the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -208,8 +211,7 @@ class PagedPool:
 class TorchEngine:
     """The model half of the server: weights, the batched cache, two steps.
 
-    Owns the contiguous cache (slots x max_len) and exposes what the
-    scheduler needs:
+    Owns the cache (slots x max_len) and exposes what the scheduler needs:
 
       * prefill_step(slot, tokens, pos) — one prefill work unit.  In
         ``chunked`` mode this is `Model.prefill_into` over a C-wide window
@@ -220,6 +222,15 @@ class TorchEngine:
         row at its own position, inactive rows parked at max_len-1.
 
     ``prefill_calls`` / ``decode_calls`` count step dispatches.
+
+    With ``paged=True`` the cache k/v are page pools (page size = C)
+    addressed through ``self.pool``'s per-slot block tables; the scheduler
+    drives the allocator and this engine hands the tables to both steps
+    (copied to the device once per step).  ``num_pages`` sizes the pool
+    (default: the contiguous layout's capacity plus the park page).  Paged
+    mode requires chunked prefill: each prefill step fills one page.  With
+    ``window=W`` every attention call is sliding-window; the scheduler
+    parks and recycles out-of-window pages.
 
     Weights come from ``params`` — the JAX parameter tree as numpy arrays,
     converted by `params_from_jax` — or are drawn from a
@@ -237,10 +248,10 @@ class TorchEngine:
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if chunk < 1 or chunk > max_len:
             raise ValueError(f"chunk {chunk} outside [1, max_len={max_len}]")
-        if paged or num_pages is not None:
-            raise NotImplementedError("the paged KV cache is not ported yet")
-        if window is not None:
-            raise NotImplementedError("sliding-window attention is not ported yet")
+        if paged and prefill_mode != "chunked":
+            raise ValueError("paged cache requires prefill_mode='chunked'")
+        if window is not None and window < 1:
+            raise ValueError(f"sliding window of {window} tokens")
         if quantize not in (None, "none"):
             raise NotImplementedError("quantized serving is not ported yet")
         dev = torch.device(device)
@@ -251,13 +262,19 @@ class TorchEngine:
         self.max_len = max_len
         self.chunk = chunk
         self.prefill_mode = prefill_mode
+        self.paged = paged
+        self.window = window
         self.device = container.device
         self.model = Model(cfg, container.binding, device=self.device)
         if params is None:
             self.model.init(torch.Generator(device=self.device).manual_seed(seed))
         else:
             self.load_params(params)
-        self.cache = self.model.init_cache(slots, max_len)
+        self.pool = PagedPool(slots, max_len, chunk, num_pages) if paged else None
+        if paged:
+            self.cache = self.model.init_paged_cache(self.pool.num_pages, chunk, slots)
+        else:
+            self.cache = self.model.init_cache(slots, max_len)
         self.prefill_calls = 0
         self.decode_calls = 0
 
@@ -282,7 +299,9 @@ class TorchEngine:
         if self.prefill_mode == "chunked":
             buf = np.zeros((1, self.chunk), np.int32)
             buf[0, :n] = tokens
-            logits, self.cache = self.model.prefill_into(buf, self.cache, int(slot), int(pos), n)
+            row = self.pool.block_tables[slot] if self.paged else None
+            logits, self.cache = self.model.prefill_into(buf, self.cache, int(slot), int(pos), n,
+                                                         block_row=row, window=self.window)
             self.prefill_calls += 1
             return logits[0].cpu().numpy()
         if n != 1:
@@ -293,7 +312,7 @@ class TorchEngine:
         posv[slot] = pos
         act = np.zeros(self.slots, bool)
         act[slot] = True
-        _, self.cache = self.model.decode(tok, self.cache, posv, act)
+        _, self.cache = self.model.decode(tok, self.cache, posv, act, window=self.window)
         self.decode_calls += 1
         return None
 
@@ -303,9 +322,34 @@ class TorchEngine:
         """One batched decode tick.  tokens (slots, 1), pos (slots,),
         active (slots,) bool; returns (slots, vocab) logits (garbage on
         inactive rows)."""
-        logits, self.cache = self.model.decode(tokens, self.cache, pos, active)
+        table = self.pool.block_tables if self.paged else None
+        logits, self.cache = self.model.decode(tokens, self.cache, pos, active,
+                                               block_tables=table, window=self.window)
         self.decode_calls += 1
         return logits.cpu().numpy()
+
+    # -- KV handoff (the fleet's slot migration) --------------------------
+    def export_slot(self, slot: int, n_tokens: int) -> tuple[dict, int]:
+        """One slot's written pages out of the paged pools, as host numpy
+        arrays (`Model.export_paged_slot`), and how many pages they are.
+        ``n_tokens`` is the number of positions written so far.  The arrays
+        import into a `JaxEngine` as they do into a `TorchEngine`."""
+        if not self.paged:
+            raise ValueError("slot export requires the paged cache")
+        if n_tokens < 1:
+            raise ValueError(f"export of {n_tokens} tokens")
+        pages_used = -(-n_tokens // self.pool.page_size)
+        pages = self.pool.block_tables[slot][:pages_used]
+        return self.model.export_paged_slot(self.cache, pages, slot), pages_used
+
+    def import_slot(self, slot: int, arrays: dict, pages_used: int) -> None:
+        """Scatter a KV handoff into this engine's own pages: the first
+        ``pages_used`` entries of the slot's block table, which the
+        scheduler leased (`Scheduler.adopt`) before this call."""
+        if not self.paged:
+            raise ValueError("slot import requires the paged cache")
+        pages = self.pool.block_tables[slot][:pages_used]
+        self.cache = self.model.import_paged_slot(self.cache, arrays, pages, slot)
 
 
 class Scheduler:
@@ -759,6 +803,20 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-mode", choices=("chunked", "decode"), default="chunked",
                     help="'decode' replays the old prefill-by-decode loop "
                          "(O(prompt_len) whole-batch ticks) as a baseline")
+    ap.add_argument("--paged", action="store_true",
+                    help="page the KV cache (page size = --chunk) with "
+                         "per-slot block tables; admission budgets in pages "
+                         "actually needed (requires chunked prefill)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="paged pool size incl. the reserved park page "
+                         "(default: 1 + slots * ceil(max_len/chunk), the "
+                         "contiguous layout's capacity)")
+    ap.add_argument("--window", type=int, default=None, metavar="W",
+                    help="sliding-window attention: every token attends "
+                         "only its trailing W keys; with --paged, "
+                         "out-of-window pages are parked and recycled, "
+                         "capping each request's admission footprint at "
+                         "ceil(W/chunk)+1 pages")
     ap.add_argument("--queue-depth", type=int, default=64,
                     help="admission control: submits beyond this queue depth "
                          "are rejected, not buffered")
@@ -774,6 +832,7 @@ def main(argv=None) -> int:
     server = Server(cfg, container, slots=args.slots, max_len=args.max_len,
                     chunk=args.chunk, prefill_mode=args.prefill_mode,
                     queue_depth=args.queue_depth, interleave=args.interleave,
+                    paged=args.paged, num_pages=args.num_pages, window=args.window,
                     device=args.device)
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -797,6 +856,16 @@ def main(argv=None) -> int:
     if server.scheduler.rejected:
         print("rejected: " + " ".join(
             f"{k}={v}" for k, v in sorted(server.scheduler.rejected.items())))
+    if args.paged:
+        pool = server.engine.pool
+        stats = server.scheduler.consolidated_stats()
+        print(f"paged pool: {pool.num_pages} pages x {pool.page_size} tokens "
+              f"(park+{int(stats['pages-capacity'])}) | "
+              f"peak_active={int(stats['peak-active'])} | "
+              f"pages allocated/used mean "
+              f"{stats['pages-allocated-mean']:.1f}"
+              f"/{stats['pages-written-mean']:.1f} "
+              f"(fragmentation {stats['fragmentation-pct']:.0f}%)")
     runtime.cleanup()
     return 0
 

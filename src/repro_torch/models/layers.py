@@ -1,7 +1,8 @@
 """Transformer layers of the dense text decoder, in PyTorch.
 
-A port of `repro/models/layers.py` for the contiguous, full-precision
-serving path.  Every hardware-sensitive op goes through the container's
+A port of `repro/models/layers.py` for the full-precision serving path,
+over a contiguous KV cache or a paged one, with an optional sliding
+window.  Every hardware-sensitive op goes through the container's
 binding (``binding["rmsnorm"]``, ``binding["attention"]``, ...); the plain
 large products (projections, MLP) stay matrix products, as the JAX
 package left them to XLA.
@@ -10,8 +11,9 @@ Tensor layouts are the JAX package's: ``wq (d, h, dh)``, ``wk/wv
 (d, kv, dh)``, ``wo (h, dh, d)``, activations ``(B, S, H, Dh)``, so
 weights cross over leaf for leaf.
 
-The KV cache is updated in place (`_cache_write`): JAX returns a new
-buffer, which on the card would cost a second copy of the cache per step.
+The KV cache is updated in place (`_cache_write`, `_paged_decode_write`,
+the paged chunk's page copy): JAX returns a new buffer, which on the card
+would cost a second copy of the cache per step.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import LeafSpec
 
 __all__ = ["rotary", "norm_schema", "norm_apply", "attention_schema", "attention_apply",
-           "attention_decode", "attention_chunk", "mlp_schema", "mlp_apply"]
+           "attention_decode", "attention_chunk", "mlp_schema", "mlp_apply",
+           "paged_write_index"]
 
 
 # --------------------------------------------------------------------------- #
@@ -123,22 +126,57 @@ def _cache_write(buf: torch.Tensor, upd: torch.Tensor, pos) -> torch.Tensor:
     return buf
 
 
+def paged_write_index(pos: torch.Tensor, block_tables: torch.Tensor,
+                      page: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each row's decode token lands in a page pool: (physical page
+    ``block_tables[b, pos[b] // page]``, offset ``pos[b] % page``), both
+    (B,) int64.  The same for every layer of a tick, so the model computes
+    it once per tick."""
+    pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return block_tables[rows, pos // page].long(), pos % page
+
+
+def _paged_decode_write(pool: torch.Tensor, upd: torch.Tensor, write_at) -> torch.Tensor:
+    """Scatter each row's new token into its page, in place, at `write_at`
+    (`paged_write_index`): logical position p of row b lands in page
+    block_tables[b, p // page] at offset p % page.  Parked rows (table row
+    all zeros) write into the reserved park page: harmless garbage, their
+    logits are discarded."""
+    phys, off = write_at
+    pool[phys, off] = upd[:, 0].to(pool.dtype)
+    return pool
+
+
 def attention_decode(params, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                     cfg: ModelConfig, binding):
+                     cfg: ModelConfig, binding, *, block_tables: torch.Tensor | None = None,
+                     window: int | None = None, write_at=None):
     """One-token attention against the cache; writes the new k/v in place.
 
     x: (B, 1, D); cache k/v: (B, Smax, KV, Dh); pos: (B,) int — each row's
-    new-token index (continuous batching).
+    new-token index (continuous batching).  With `block_tables`
+    ((B, nblocks) int32 on the device) the cache k/v are page pools
+    (P, page, KV, Dh) shared by all slots: the write scatters through the
+    table (`write_at`, see `_paged_decode_write`) and the op gathers
+    through it.  With `window` only the trailing `window` cache slots are
+    attended; out-of-window pages may already have been recycled.
     """
     q, k, v = _qkv(params, x, cfg, pos[:, None])
-    k_cache = _cache_write(cache["k"], k, pos)
-    v_cache = _cache_write(cache["v"], v, pos)
-    out = binding["decode_attention"](q, k_cache, v_cache, pos)
+    if block_tables is not None:
+        if write_at is None:
+            write_at = paged_write_index(pos, block_tables, cache["k"].shape[1])
+        k_cache = _paged_decode_write(cache["k"], k, write_at)
+        v_cache = _paged_decode_write(cache["v"], v, write_at)
+    else:
+        k_cache = _cache_write(cache["k"], k, pos)
+        v_cache = _cache_write(cache["v"], v, pos)
+    out = binding["decode_attention"](q, k_cache, v_cache, pos, block_tables, window)
     return _out(out, params["wo"]), {"k": k_cache, "v": v_cache}
 
 
 def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelConfig,
-                    binding):
+                    binding, *, block_tables: torch.Tensor | None = None,
+                    window: int | None = None, write_page: int | None = None):
     """Chunked-prefill attention: C prompt tokens at global positions
     pos..pos+C-1 against the partially filled cache.
 
@@ -146,13 +184,30 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
     ``binding["chunk_attention"]`` (query i sees cache keys <= pos+i).
     Positions past the prompt's true end carry garbage k/v, but every later
     query sees those slots only after they are overwritten.
+
+    With `block_tables` (the prefilling slot's (1, nblocks) int32 table on
+    the device, B == 1) the cache k/v are page pools, and the serving
+    invariant page == C makes the chunk's write exactly one page:
+    `write_page`, the physical page block_tables[0, pos // page] (read
+    from the table when not given).  With `window` each chunk query
+    attends only its trailing `window` keys.
     """
     c = x.shape[1]
     chunk_pos = pos + torch.arange(c, device=x.device)
     q, k, v = _qkv(params, x, cfg, chunk_pos)
-    k_cache = _cache_write(cache["k"], k, pos)
-    v_cache = _cache_write(cache["v"], v, pos)
-    out = binding["chunk_attention"](q, k_cache, v_cache, pos)
+    if block_tables is not None:
+        page = cache["k"].shape[1]
+        if c != page:
+            raise ValueError(f"paged prefill requires chunk == page, {c} != {page}")
+        if write_page is None:
+            write_page = int(block_tables[0, pos // page])
+        cache["k"][write_page] = k[0].to(cache["k"].dtype)
+        cache["v"][write_page] = v[0].to(cache["v"].dtype)
+        k_cache, v_cache = cache["k"], cache["v"]
+    else:
+        k_cache = _cache_write(cache["k"], k, pos)
+        v_cache = _cache_write(cache["v"], v, pos)
+    out = binding["chunk_attention"](q, k_cache, v_cache, pos, block_tables, window)
     return _out(out, params["wo"]), {"k": k_cache, "v": v_cache}
 
 

@@ -4,7 +4,11 @@ A port of the dense family of `repro/models/model.py`: the same schema
 (embedding, a stack of [pre-norm, attention, post-norm, SiLU-GLU MLP]
 blocks, final norm, LM head), the same cache layout and the same serving
 entry points — `prefill`, `prefill_into` (chunked prefill into one slot of
-a batched cache) and `decode` (one continuous-batching tick).
+a batched cache) and `decode` (one continuous-batching tick), each over a
+contiguous cache (`init_cache`) or a paged one (`init_paged_cache`: k/v
+page pools shared by all slots, addressed through per-slot block tables),
+with an optional sliding window — plus `export_paged_slot` /
+`import_paged_slot`, the KV handoff's page copy.
 
 The JAX model scans one stacked parameter group over its blocks; here each
 block is a module of an `nn.ModuleList` holding its own slice of the stack
@@ -19,8 +23,8 @@ Parameters are created on the meta device and bound by `load_params`
 (weights from elsewhere, e.g. `repro_torch.convert.params_from_jax`) or
 `init` (drawn from a seeded `torch.Generator` on the model's device).
 
-MoE, SSM, encoder-decoder, vision, paged-cache and quantized paths are not
-ported: such configurations raise NotImplementedError.
+MoE, SSM, encoder-decoder, vision and quantized paths are not ported:
+such configurations raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -175,16 +180,75 @@ class Model(nn.Module):
         return {"p0": {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
                        for name in ("k", "v")}}
 
+    def paged_cache_shapes(self, num_pages: int, page_size: int, slots: int) -> Tree:
+        """Paged-cache entry shapes, as the JAX model's: attention k/v become
+        page pools (layers, num_pages, page_size, KV, Dh) shared by all
+        slots.  ``slots`` sizes per-slot state, of which a dense decoder
+        has none."""
+        shape = (self.num_blocks, num_pages, page_size, self.cfg.num_kv_heads,
+                 self.cfg.head_dim)
+        return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
+
+    def init_paged_cache(self, num_pages: int, page_size: int, slots: int) -> Tree:
+        """Zeroed paged cache ``{"p0": {"k", "v"}}`` of `paged_cache_shapes`."""
+        return {pj: {name: torch.zeros(shape, dtype=torch_dtype(dt), device=self.device)
+                     for name, (shape, dt) in entry.items()}
+                for pj, entry in self.paged_cache_shapes(num_pages, page_size, slots).items()}
+
+    def export_paged_slot(self, cache: Tree, pages, slot: int) -> dict:
+        """One slot's state out of a paged cache, as host numpy arrays.
+
+        ``pages`` is the slot's leased page ids in block-table order (only
+        the written prefix).  Keys are ``"p{j}/{leaf}"`` and k/v yield
+        ``(layers, len(pages), page_size, KV, Dh)`` page stacks, as the JAX
+        model exports them; bf16 pools export as float32 (exact), since
+        numpy has no bfloat16.
+        """
+        ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
+        out: dict = {}
+        for pj, entry in cache.items():
+            for name, buf in entry.items():
+                stack = buf[:, ix]
+                if stack.dtype == torch.bfloat16:
+                    stack = stack.float()
+                out[f"{pj}/{name}"] = stack.cpu().numpy()
+        return out
+
+    def import_paged_slot(self, cache: Tree, arrays: Mapping[str, Any], pages,
+                          slot: int) -> Tree:
+        """Scatter an exported slot into this cache's own ``pages`` (same
+        count, any ids), in place; returns the cache.  Every leaf is checked
+        before any buffer is written."""
+        staged = []
+        for pj, entry in cache.items():
+            for name, buf in entry.items():
+                key = f"{pj}/{name}"
+                if key not in arrays:
+                    raise ValueError(f"paged-slot import: missing leaf {key}")
+                src = np.asarray(arrays[key])
+                want = (buf.shape[0], len(pages)) + tuple(buf.shape[2:])
+                if src.shape != want:
+                    raise ValueError(f"paged-slot import: {key} is {src.shape}, "
+                                     f"target pages need {want}")
+                if src.dtype.kind not in "fiu":   # e.g. ml_dtypes' bfloat16
+                    src = src.astype(np.float32)
+                staged.append((buf, src))
+        ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
+        for buf, src in staged:
+            buf[:, ix] = torch.from_numpy(src).to(device=self.device, dtype=buf.dtype)
+        return cache
+
     # ------------------------------------------------------------------ #
     # forward pieces
     # ------------------------------------------------------------------ #
-    def _block(self, i: int, x: torch.Tensor, mode: str, lc=None, pos=None, positions=None):
+    def _block(self, i: int, x: torch.Tensor, mode: str, lc=None, pos=None, positions=None,
+               **attn_kw):
         blk, cfg, binding = self.layers[i], self.cfg, self.binding
         h = L.norm_apply(blk.pre_norm, x, cfg, binding)
         if mode == "decode":
-            y, kv = L.attention_decode(blk.attn, h, lc, pos, cfg, binding)
+            y, kv = L.attention_decode(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
         elif mode == "chunk":
-            y, kv = L.attention_chunk(blk.attn, h, lc, pos, cfg, binding)
+            y, kv = L.attention_chunk(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
         else:
             y, kv = L.attention_apply(blk.attn, h, cfg, binding, positions=positions)
         x = x + y
@@ -206,6 +270,14 @@ class Model(nn.Module):
     def _slot_cache(self, cache: Tree, i: int, rows: slice) -> dict:
         return {name: buf[i, rows] for name, buf in cache["p0"].items()}
 
+    def _layer_pools(self, cache: Tree, i: int) -> dict:
+        return {name: buf[i] for name, buf in cache["p0"].items()}
+
+    def _table(self, table) -> torch.Tensor:
+        """A host block table as int32 on the device: one copy per tick or
+        chunk, shared by every layer."""
+        return torch.tensor(np.asarray(table, dtype=np.int32), device=self.device)
+
     # ------------------------------------------------------------------ #
     # public entry points
     # ------------------------------------------------------------------ #
@@ -224,7 +296,8 @@ class Model(nn.Module):
         return logits, {"p0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
     @torch.no_grad()
-    def prefill_into(self, tokens, cache: Tree, slot: int, pos: int, n_valid: int | None = None):
+    def prefill_into(self, tokens, cache: Tree, slot: int, pos: int, n_valid: int | None = None,
+                     block_row=None, window: int | None = None):
         """Chunked prefill: advance ONE slot of a batched cache by C tokens.
 
         tokens: (1, C) int — the chunk, right-padded to C; slot: the batch
@@ -232,29 +305,53 @@ class Model(nn.Module):
         pos + C <= max_len); n_valid: real tokens in the chunk (default C).
         The cache is updated in place.  Returns (logits (1, vocab) of token
         n_valid-1, cache).
+
+        With `block_row` (this slot's (nblocks,) block-table row, a host
+        array) the cache is paged (`init_paged_cache`): each layer's pools
+        are passed whole, and the chunk fills page block_row[pos // C].
+        With `window` each chunk query attends only its trailing `window`
+        keys; pages wholly behind the window may already be recycled.
         """
         tokens = torch.as_tensor(tokens, device=self.device)
         if n_valid is None:
             n_valid = tokens.shape[1]
+        pos = int(pos)
         x = self._embed(tokens)
-        rows = slice(slot, slot + 1)
+        attn_kw = {"window": window}
+        if block_row is not None:
+            row = np.asarray(block_row)
+            attn_kw["block_tables"] = self._table(row[None])
+            attn_kw["write_page"] = int(row[pos // tokens.shape[1]])
         for i in range(self.num_blocks):
-            x, _ = self._block(i, x, "chunk", lc=self._slot_cache(cache, i, rows), pos=int(pos))
+            lc = (self._layer_pools(cache, i) if block_row is not None
+                  else self._slot_cache(cache, i, slice(slot, slot + 1)))
+            x, _ = self._block(i, x, "chunk", lc=lc, pos=pos, **attn_kw)
         logits = self._logits(x[:, n_valid - 1:n_valid, :].contiguous())[:, 0]
         return logits, cache
 
     @torch.no_grad()
-    def decode(self, token, cache: Tree, pos, active=None):
+    def decode(self, token, cache: Tree, pos, active=None, block_tables=None,
+               window: int | None = None):
         """One batched decode tick.  token: (B, 1) int; pos: int, () or (B,)
         int — every row at its own position; active: accepted for the JAX
         signature (it freezes recurrent state, which dense decoders have
-        none of — parked rows write at the position the scheduler parks).
-        The cache is updated in place.  Returns (logits (B, vocab), cache).
+        none of — parked rows write at the position the scheduler parks;
+        paged: table row all zeros, the write lands in the park page).
+        block_tables: (B, nblocks) int host array — the cache is paged.
+        window: sliding-window decode, only the trailing `window` cache
+        slots are attended.  The cache is updated in place.  Returns
+        (logits (B, vocab), cache).
         """
         x = self._embed(token)
         b = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b).contiguous()
+        attn_kw = {"window": window}
+        if block_tables is not None:
+            table = self._table(block_tables)
+            attn_kw["block_tables"] = table
+            attn_kw["write_at"] = L.paged_write_index(pos, table, cache["p0"]["k"].shape[2])
         for i in range(self.num_blocks):
-            x, _ = self._block(i, x, "decode", lc=self._slot_cache(cache, i, slice(None)),
-                               pos=pos)
+            lc = (self._layer_pools(cache, i) if block_tables is not None
+                  else self._slot_cache(cache, i, slice(None)))
+            x, _ = self._block(i, x, "decode", lc=lc, pos=pos, **attn_kw)
         return self._logits(x)[:, 0], cache

@@ -51,7 +51,8 @@ def test_abi_strings_equal_across_packages(op):
 
 def test_port_declares_every_jax_op():
     assert set(OP_NAMES) == set(JAX_ABIS)
-    assert set(PORTED_OPS) == {"rmsnorm", "attention", "chunk_attention", "decode_attention"}
+    assert set(PORTED_OPS) == {"rmsnorm", "attention", "windowed_attention", "chunk_attention",
+                               "decode_attention"}
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])

@@ -1,12 +1,15 @@
 """The port's kernel modules held against the JAX package, on the CPU.
 
 For each op of the slice the torch reference (`rmsnorm_ref`,
-`attention_ref`, `chunk_attention_ref`, `decode_attention_ref`) and the
-CUDA adapter (the wrapper a card launches; on CPU tensors it takes its
-plain version) get the same inputs as the JAX Pallas kernel run with
-``interpret=True`` and the JAX reference, over prefill, chunk and decode
-geometries with kv padding, in fp32 and bf16, within TOLS (the attention
-grid's per-dtype tolerances, atol = rtol).
+`attention_ref`, `windowed_attention_ref`, `chunk_attention_ref`,
+`decode_attention_ref`) and the CUDA adapter (the wrapper a card
+launches; on CPU tensors it takes its plain version) get the same inputs
+as the JAX Pallas kernel run with ``interpret=True`` and the JAX
+reference, over prefill, chunk and decode geometries with kv padding, in
+fp32 and bf16, within TOLS (the attention grid's per-dtype tolerances,
+atol = rtol).  The paged forms read shuffled block tables over page pools
+whose park page 0 is poisoned (as tests/test_attention_conformance.py's
+`_paged_layout`); the windowed forms run at W in {page, 2 page, >= kv_len}.
 
 Inputs are drawn with numpy from a crc32 seed of the cell id and handed
 to both frameworks; bf16 inputs are the same fp32 draws rounded once.
@@ -23,6 +26,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention_ref import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention_ref import chunk_attention_ref as jax_chunk_ref
 from repro.kernels.flash_attention_ref import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention_ref import windowed_attention_ref as jax_windowed_ref
 from repro.kernels.ops import _NATIVES_INTERPRET
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro.kernels.rmsnorm_ref import rmsnorm_ref as jax_rmsnorm_ref
@@ -32,6 +36,7 @@ from repro_torch.kernels.flash_attention_ref import (
     attention_ref,
     chunk_attention_ref,
     decode_attention_ref,
+    windowed_attention_ref,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm_ref import rmsnorm_ref
@@ -175,16 +180,240 @@ def test_decode_attention_matches_jax(geom, dtype):
         _close(got, want_ref, dtype)
 
 
-@pytest.mark.parametrize("arg", ["block_tables", "window", "k_scale", "v_scale"])
-def test_unported_attention_forms_raise(arg):
-    q, k = torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 2, 8)
-    extra = {arg: torch.zeros(1, dtype=torch.int32)}
+# ---------------------------------------------------------------------------
+# paged and sliding-window forms
+# ---------------------------------------------------------------------------
+
+POISON = 50.0     # park-page fill: loud if it ever leaks into an output
+
+
+def _paged_layout(k, v, page, seed):
+    """Scatter a contiguous (B, S, KV, Dh) cache into page pools through a
+    shuffled permutation block table; page 0 is the park page, poisoned."""
+    b, s = k.shape[:2]
+    n = s // page
+    npages = 1 + b * n
+    table = np.random.default_rng(seed).permutation(np.arange(1, npages)).reshape(b, n)
+    pools = []
+    for x in (k, v):
+        pool = np.full((npages, page) + x.shape[2:], POISON, np.float32)
+        pool[table.reshape(-1)] = x.reshape(b * n, page, *x.shape[2:])
+        pools.append(pool)
+    return pools[0], pools[1], table.astype(np.int32)
+
+
+def _window(wtag, page, full):
+    return {None: None, "page": page, "2page": 2 * page, "full": full}[wtag]
+
+
+def _jax_window(w):
+    return None if w is None else jnp.int32(w)
+
+
+def _hold(op, q, k, v, pos, table, w, dtype):
+    """The port's reference and its CUDA adapter's CPU path against the
+    Pallas kernel (interpret mode) and the JAX reference, on one input."""
+    jax_ref = {"decode_attention": jax_decode_ref, "chunk_attention": jax_chunk_ref}[op]
+    torch_ref = {"decode_attention": decode_attention_ref,
+                 "chunk_attention": chunk_attention_ref}[op]
+    cuda = {"decode_attention": ops._cuda_decode_attention,
+            "chunk_attention": ops._cuda_chunk_attention}[op]
+    (jq, tq), (jk, tk), (jv, tv) = _both(q, dtype), _both(k, dtype), _both(v, dtype)
+    jpos = jnp.asarray(pos, jnp.int32)
+    tpos = pos if isinstance(pos, int) else torch.tensor(pos, dtype=torch.int32)
+    jt = None if table is None else jnp.asarray(table)
+    tt = None if table is None else torch.from_numpy(table)
+    want_kernel = _NATIVES_INTERPRET[op](jq, jk, jv, jpos, jt, _jax_window(w))
+    want_ref = jax_ref(jq, jk, jv, jpos, jt, _jax_window(w))
+    outs = (torch_ref(tq, tk, tv, tpos, tt, w), cuda(tq, tk, tv, tpos, tt, w))
+    for got in outs:
+        assert torch.isfinite(got.float()).all()
+        _close(got, want_kernel, dtype)
+        _close(got, want_ref, dtype)
+    return outs
+
+
+# (b, smax, h, kv, dh, page, positions): page 4 and 8 — several pages per
+# 64-key tile on the card — and a parked last slot
+PAGED_DECODE_GEOMS = [(3, 24, 4, 2, 16, 8, (0, 9, 23)), (4, 32, 2, 1, 8, 4, (5, 31, 17, 31))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", PAGED_DECODE_GEOMS, ids=lambda g: "x".join(map(str, g[:6])))
+def test_paged_decode_matches_jax(geom, dtype):
+    b, smax, h, kv, dh, page, positions = geom
+    seed = _seed("paged-decode", geom, dtype)
+    q, k, v = _draw(seed, (b, 1, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    _hold("decode_attention", q, pk, pv, positions, table, None, dtype)
+
+
+# (b, c, smax, h, kv, dh, page, pos): the chunk fills whole pages
+PAGED_CHUNK_GEOMS = [(1, 8, 32, 4, 2, 16, 8, 16), (2, 4, 24, 2, 1, 8, 4, 12)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", PAGED_CHUNK_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_paged_chunk_matches_jax(geom, dtype):
+    b, c, smax, h, kv, dh, page, pos = geom
+    seed = _seed("paged-chunk", geom, dtype)
+    q, k, v = _draw(seed, (b, c, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    _hold("chunk_attention", q, pk, pv, pos, table, None, dtype)
+
+
+WINDOWS = ("page", "2page", "full")
+PAGE = 8
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wtag", WINDOWS)
+def test_windowed_decode_matches_jax(wtag, dtype):
+    b, smax, h, kv, dh, positions = 3, 32, 4, 2, 16, (3, 17, 31)
+    q, k, v = _draw(_seed("win-decode", wtag, dtype),
+                    (b, 1, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    _hold("decode_attention", q, k, v, positions, None, _window(wtag, PAGE, smax), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wtag", WINDOWS)
+def test_windowed_chunk_matches_jax(wtag, dtype):
+    b, c, smax, h, kv, dh, pos = 2, 8, 32, 4, 2, 16, 20
+    q, k, v = _draw(_seed("win-chunk", wtag, dtype),
+                    (b, c, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    _hold("chunk_attention", q, k, v, pos, None, _window(wtag, PAGE, smax), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wtag", WINDOWS)
+def test_windowed_attention_matches_jax(wtag, dtype):
+    b, sq, sk, h, kv, dh = 2, 30, 30, 4, 2, 16
+    q, k, v = _draw(_seed("win-attn", wtag, dtype),
+                    (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))
+    w = _window(wtag, PAGE, sk)
+    (jq, tq), (jk, tk), (jv, tv) = _both(q, dtype), _both(k, dtype), _both(v, dtype)
+    want_kernel = _NATIVES_INTERPRET["windowed_attention"](jq, jk, jv, jnp.int32(w))
+    want_ref = jax_windowed_ref(jq, jk, jv, jnp.int32(w))
+    for got in (windowed_attention_ref(tq, tk, tv, w), ops._cuda_windowed_attention(tq, tk, tv, w),
+                ops._ref_windowed_attention(tq, tk, tv, torch.tensor([w, w]))):
+        _close(got, want_kernel, dtype)
+        _close(got, want_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", ["decode_attention", "chunk_attention"])
+def test_paged_windowed_matches_jax(op, dtype):
+    """Paged + windowed, with the pages wholly below every row's window
+    parked on the poisoned page 0, as the scheduler's recycling leaves
+    them (JAX serve.py `_slide_window`)."""
+    b, smax, h, kv, dh, page, w = 2, 32, 4, 2, 16, 4, 8
+    sq, pos = (1, (21, 26)) if op == "decode_attention" else (4, 24)
+    seed = _seed("paged-win", op, dtype)
+    q, k, v = _draw(seed, (b, sq, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    head = min(pos) if op == "decode_attention" else pos
+    table[:, :max(0, head - w) // page] = 0          # dead blocks parked
+    assert (table == 0).any()
+    _hold(op, q, pk, pv, pos, table, w, dtype)
+
+
+def test_paged_park_page_is_inert():
+    """Park (0) entries past the written prefix are read and must be masked:
+    the poisoned page never reaches the output."""
+    b, smax, h, kv, dh, page, positions = 2, 32, 2, 2, 8, 8, (5, 9)
+    seed = _seed("park")
+    q, k, v = _draw(seed, (b, 1, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    table[:, 2:] = 0                                 # park everything past page 1
+    _hold("decode_attention", q, pk, pv, positions, table, None, "float32")
+    want = decode_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                torch.tensor(positions, dtype=torch.int32))
+    _close(ops._cuda_decode_attention(*(torch.from_numpy(x) for x in (q, pk, pv)),
+                                      torch.tensor(positions, dtype=torch.int32),
+                                      torch.from_numpy(table)), want, "float32")
+
+
+@pytest.mark.parametrize("op", ["decode_attention", "chunk_attention"])
+def test_windowed_dead_pages_are_inert(op):
+    """Pages wholly below the window start, parked on the poisoned page 0,
+    give the output of the unparked contiguous cache."""
+    b, smax, h, kv, dh, page, w = 2, 32, 2, 2, 8, 8, 8
+    sq, pos = (1, (17, 20)) if op == "decode_attention" else (8, 24)
+    seed = _seed("dead", op)
+    q, k, v = _draw(seed, (b, sq, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    table[:, 0] = 0                                  # keys 0..7: below every window
+    paged = _hold(op, q, pk, pv, pos, table, w, "float32")
+    tpos = pos if isinstance(pos, int) else torch.tensor(pos, dtype=torch.int32)
+    contiguous = (decode_attention_ref if op == "decode_attention" else chunk_attention_ref)(
+        *(torch.from_numpy(x) for x in (q, k, v)), tpos, None, w)
+    for got in paged:
+        _close(got, contiguous, "float32")
+
+
+@pytest.mark.parametrize("op", ["decode_attention", "chunk_attention", "windowed_attention"])
+def test_window_past_kv_len_is_bit_identical(op):
+    """W >= kv_len masks nothing: the windowed call returns exactly the
+    unwindowed call's output, paged or not."""
+    b, smax, h, kv, dh, page = 2, 32, 4, 2, 16, 8
+    sq = {"decode_attention": 1, "chunk_attention": 8, "windowed_attention": smax}[op]
+    seed = _seed("bitwise", op)
+    q, k, v = _draw(seed, (b, sq, h, dh), (b, smax, kv, dh), (b, smax, kv, dh))
+    tq = torch.from_numpy(q)
+    if op == "windowed_attention":
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+        full = ops._cuda_attention(tq, tk, tv, causal=True)
+        for w in (smax, 10 * smax):
+            assert torch.equal(ops._cuda_windowed_attention(tq, tk, tv, w), full)
+        return
+    pk, pv, table = _paged_layout(k, v, page, seed)
+    fn = ops._cuda_decode_attention if op == "decode_attention" else ops._cuda_chunk_attention
+    pos = torch.tensor([7, 31], dtype=torch.int32) if sq == 1 else 16
+    for args in ((torch.from_numpy(k), torch.from_numpy(v), pos, None),
+                 (torch.from_numpy(pk), torch.from_numpy(pv), pos, torch.from_numpy(table))):
+        full = fn(tq, *args)
+        for w in (smax, 1 << 30, torch.tensor([smax, 2 * smax])):
+            assert torch.equal(fn(tq, *args, w), full)
+
+
+@pytest.mark.parametrize("arg", ["block_tables", "window"])
+def test_paged_and_windowed_forms_run(arg):
+    """The forms that raised before this slice run through every entry
+    point: the refs, the CUDA adapters' CPU path and the bound ops."""
+    q, k = torch.ones(1, 1, 2, 8), torch.ones(1, 4, 2, 8)
+    extra = {"block_tables": torch.zeros(1, 1, dtype=torch.int32),
+             "window": torch.ones(1, dtype=torch.int32)}[arg]
     for fn in (decode_attention_ref, chunk_attention_ref, ops._cuda_decode_attention,
                ops._cuda_chunk_attention):
-        kw = {("block_table" if arg == "block_tables" and "ref" in fn.__name__ else arg):
-              extra[arg]}
+        args = (extra, None) if arg == "block_tables" else (None, extra)
+        out = fn(q, k, k, 0, *args)
+        assert out.shape == q.shape and torch.allclose(out, q)
+
+
+@pytest.mark.parametrize("arg", ["k_scale", "v_scale"])
+def test_unported_attention_forms_raise(arg):
+    q, k = torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 2, 8)
+    for fn in (decode_attention_ref, chunk_attention_ref, ops._cuda_decode_attention,
+               ops._cuda_chunk_attention):
         with pytest.raises(NotImplementedError):
-            fn(q, k, k, 0, **kw)
+            fn(q, k, k, 0, **{arg: torch.ones(1)})
+
+
+def test_wrapper_checks_the_block_table_on_every_device():
+    """A table the card could not read is refused before any branch."""
+    q, pool = torch.zeros(2, 1, 2, 8), torch.zeros(5, 4, 2, 8)
+    table = torch.ones(2, 3, dtype=torch.int32)
+    assert flash_attention(q, pool, pool, block_tables=table).shape == q.shape
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention(q, pool, pool, block_tables=table.long())
+    with pytest.raises(ValueError, match="batch"):
+        flash_attention(q, pool, pool, block_tables=table[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, pool, pool, block_tables=torch.ones(3, 2, dtype=torch.int32).T)
+    with pytest.raises(ValueError, match="page_size"):
+        flash_attention(q, pool, pool, block_tables=table, page_size=8)
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, pool, pool[:, :, :1], block_tables=table)
 
 
 def test_cpu_wrappers_never_build_or_count():

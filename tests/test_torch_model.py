@@ -8,6 +8,9 @@ parked slot — through the reference binding on both sides, and through
 the kernel path on both sides (the JAX Pallas kernels in interpret mode;
 the port's CUDA wrappers, which on CPU tensors take their plain
 versions).  The KV caches the steps leave behind must agree as well.
+The same holds over a paged cache (shuffled block tables, a parked slot
+on the park page), with a sliding window, and with both; a paged slot
+exported by either model imports into the other.
 """
 
 import dataclasses
@@ -164,6 +167,113 @@ def test_decode_per_slot_positions_with_parked_slot_matches_jax(jax_params, kern
         _close(tl, jl)
         pos = pos + active
     _close_cache(tcache, jcache)
+
+
+PAGE = CHUNK          # the serving invariant: one prefill chunk fills one page
+WINDOW = 6
+
+
+def _paged_tables(rng, num_pages):
+    """Shuffled tables for slots 0 and 1; slot 2 parked (all zeros)."""
+    nblocks = -(-MAX_LEN // PAGE)
+    ids = rng.permutation(np.arange(1, num_pages))[:2 * nblocks].reshape(2, nblocks)
+    return np.concatenate([ids, np.zeros((1, nblocks), np.int64)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["refs", "kernels"])
+@pytest.mark.parametrize("mode", ["paged", "windowed", "paged-windowed"])
+def test_paged_and_windowed_steps_match_jax(jax_params, mode, kernels):
+    """prefill_into (full and partial last chunk) into slot 1, then decode
+    ticks with slot 2 parked, over the mode's cache: logits and caches
+    equal to the JAX model's within 1e-4."""
+    jm, tm = _pair(jax_params, kernels)
+    rng = np.random.default_rng(_seed("paged-steps", mode, kernels))
+    paged = mode.startswith("paged")
+    window = WINDOW if mode.endswith("windowed") else None
+    if paged:
+        num_pages = 1 + SLOTS * -(-MAX_LEN // PAGE)
+        shape = (2, num_pages, PAGE, 2, 16)
+        tables = _paged_tables(rng, num_pages)
+    else:
+        shape, tables = (2, SLOTS, MAX_LEN, 2, 16), None
+    # a cache holding earlier writes (random values), shared by both sides
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    jcache = {"p0": {"k": jnp.asarray(k), "v": jnp.asarray(v)}}
+    tcache = {"p0": {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}}
+    jwin = None if window is None else jnp.int32(window)
+
+    prompt = rng.integers(0, 256, 13)
+    step = jax.jit(jm.prefill_into)
+    slot = 1
+    for start in range(0, len(prompt), CHUNK):         # 5 + 5 + 3
+        n = min(CHUNK, len(prompt) - start)
+        buf = np.zeros((1, CHUNK), np.int32)
+        buf[0, :n] = prompt[start:start + n]
+        kw = {} if tables is None else {"block_row": jnp.asarray(tables[slot])}
+        jl, jcache = step(jax_params, jnp.asarray(buf), jcache, jnp.int32(slot),
+                          jnp.int32(start), jnp.int32(n), window=jwin, **kw)
+        tl, tcache = tm.prefill_into(torch.from_numpy(buf), tcache, slot, start, n,
+                                     block_row=None if tables is None else tables[slot],
+                                     window=window)
+        _close(tl, jl)
+
+    pos = np.array([9, len(prompt), MAX_LEN - 1], np.int32)   # slot 2 parked
+    active = np.array([True, True, False])
+    decode = jax.jit(jm.decode)
+    for _ in range(2):
+        token = rng.integers(0, 256, (SLOTS, 1)).astype(np.int32)
+        jl, jcache = decode(jax_params, jnp.asarray(token), jcache, jnp.asarray(pos),
+                            jnp.asarray(active),
+                            None if tables is None else jnp.asarray(tables), jwin)
+        tl, tcache = tm.decode(torch.from_numpy(token), tcache, torch.from_numpy(pos), active,
+                               block_tables=tables, window=window)
+        _close(tl[:2], jl[:2])                 # the parked row's logits are garbage
+        pos = pos + active
+    if paged:
+        # every page but the park page, which parked rows scribble on
+        for name in ("k", "v"):
+            _close(tcache["p0"][name][:, 1:], jcache["p0"][name][:, 1:])
+    else:
+        _close_cache(tcache, jcache)
+
+
+def test_paged_cache_layout_equals_jax():
+    cfg = get_config(ARCH).reduced()
+    tm = Model(cfg, {}, device="cpu")
+    jm = JaxModel(jax_get_config(ARCH).reduced())
+    ours = tm.paged_cache_shapes(9, 4, 2)
+    theirs = jm.paged_cache_shapes(9, 4, 2)
+    assert {pj: {n: (tuple(s), str(d)) for n, (s, d) in e.items()} for pj, e in ours.items()} \
+        == {pj: {n: (tuple(s), str(d)) for n, (s, d) in e.items()} for pj, e in theirs.items()}
+    cache = tm.init_paged_cache(9, 4, 2)
+    assert cache["p0"]["k"].shape == (2, 9, 4, 2, 16) and not cache["p0"]["v"].any()
+
+
+def test_paged_slot_export_and_import_cross_frameworks():
+    """Both models export the same "p0/k"/"p0/v" page stacks, and each
+    imports the other's into pages of its own numbering."""
+    cfg = get_config(ARCH).reduced()
+    tm = Model(cfg, {}, device="cpu")
+    jm = JaxModel(jax_get_config(ARCH).reduced())
+    rng = np.random.default_rng(_seed("export"))
+    k, v = (rng.standard_normal((2, 9, 4, 2, 16)).astype(np.float32) for _ in range(2))
+    jcache = {"p0": {"k": jnp.asarray(k), "v": jnp.asarray(v)}}
+    tcache = {"p0": {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}}
+    pages = [7, 2, 5]
+    theirs = jm.export_paged_slot(jcache, pages, 1)
+    ours = tm.export_paged_slot(tcache, pages, 1)
+    assert set(ours) == set(theirs) == {"p0/k", "p0/v"}
+    for key in ours:
+        np.testing.assert_array_equal(ours[key], np.asarray(theirs[key]))
+    target = [1, 3, 8]
+    tm.import_paged_slot(tcache, theirs, target, 0)
+    jcache = jm.import_paged_slot(jcache, ours, target, 0)
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tcache["p0"][name].numpy(), np.asarray(jcache["p0"][name]))
+        np.testing.assert_array_equal(tcache["p0"][name][:, target].numpy(),
+                                      ours[f"p0/{name}"])
+    with pytest.raises(ValueError, match="target pages"):
+        tm.import_paged_slot(tcache, ours, [1, 3], 0)
 
 
 def test_params_from_jax_rejects_a_mismatched_tree(jax_params):

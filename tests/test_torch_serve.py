@@ -2,12 +2,18 @@
 
   * end to end: one seeded request set served by the JAX `Server`
     (JaxEngine) and by the port's `Server` (TorchEngine) with the same
-    weights gives identical greedy tokens, in both prefill modes;
+    weights gives identical greedy tokens, in both prefill modes and in
+    the paged, paged-under-memory-pressure, windowed and paged + windowed
+    modes (with the same scheduler counters);
+  * KV handoff: a slot exported after prefill (by a TorchEngine or a
+    JaxEngine) and imported into another TorchEngine decodes on
+    token-identically to the unmigrated run;
   * policy: the copied `Scheduler` driven by a fake engine and a fake
     clock — admission, queue-depth rejection, prefill/decode interleave,
     the step-count invariants;
-  * the engine's options that are not ported raise, the CLI serves on
-    the CPU, and it serves the published widths when asked for the card.
+  * the engine's option that is not ported (quantize) raises, the CLI
+    serves on the CPU, paged and windowed too, and it serves the published
+    widths when asked for the card.
 """
 
 import math
@@ -21,6 +27,7 @@ from repro.configs import get_config as jax_get_config
 from repro.core import Runtime as JaxRuntime
 from repro.launch.mesh import make_host_mesh
 from repro.launch.serve import Request as JaxRequest
+from repro.launch.serve import Scheduler as JaxScheduler
 from repro.launch.serve import Server as JaxServer
 from repro.launch.train import make_bundle as jax_make_bundle
 from repro_torch.configs import get_config
@@ -98,9 +105,124 @@ def test_seeded_engine_is_deterministic(torch_container):
     assert tokens[0] == tokens[1]
 
 
-@pytest.mark.parametrize("option", [{"paged": True}, {"window": 8}, {"quantize": "int8"}])
+# (slots 2, max_len 48, chunk 8): the full paged layout is 1 + 2 * 6 = 13
+# pages; 5 leaves 4 usable, which the seeded set's two 3-page requests
+# cannot share
+SERVE_MODES = {
+    "paged": {"paged": True},
+    "paged-pressure": {"paged": True, "num_pages": 5},
+    "windowed": {"window": 8},
+    "paged-windowed": {"paged": True, "window": 8},
+}
+
+
+@pytest.mark.parametrize("mode", list(SERVE_MODES))
+def test_serving_modes_identical_to_jax_engine(jax_container, torch_container, mode):
+    kw = dict(slots=2, max_len=48, chunk=8, **SERVE_MODES[mode])
+    jserver = JaxServer(jax_get_config(ARCH).reduced(), jax_container, **kw)
+    params = jax.tree.map(np.asarray, jserver.engine.params)
+    tserver = Server(get_config(ARCH).reduced(), torch_container, device="cpu",
+                     params=params, **kw)
+    seed = _seed("serve-mode", mode)
+    for server, cls in ((jserver, JaxRequest), (tserver, Request)):
+        for r in _requests(cls, seed, n=6):
+            assert server.submit(r)
+        server.run()
+    assert all(r.done for r in tserver.requests)
+    assert [r.tokens for r in tserver.requests] == [r.tokens for r in jserver.requests]
+    assert tserver.engine.prefill_calls == jserver.engine.prefill_calls
+    assert tserver.engine.decode_calls == jserver.engine.decode_calls
+    stats = tserver.scheduler.consolidated_stats()
+    assert stats == jserver.scheduler.consolidated_stats()
+    if kw.get("paged"):
+        pool = tserver.engine.pool
+        assert tserver.engine.cache["p0"]["k"].shape[1] == pool.num_pages
+        assert 0 < stats["pages-allocated-peak"] <= pool.allocator.capacity
+        assert pool.allocator.used == 0 and not pool.block_tables.any()
+    if mode == "paged-pressure":
+        # admission waited on pages: the same requests over the full pool
+        # finish in fewer ticks
+        full = Server(get_config(ARCH).reduced(), torch_container, device="cpu",
+                      params=params, slots=2, max_len=48, chunk=8, paged=True)
+        for r in _requests(Request, seed, n=6):
+            full.submit(r)
+        full.run()
+        assert [r.tokens for r in full.requests] == [r.tokens for r in tserver.requests]
+        assert full.scheduler.ticks < tserver.scheduler.ticks
+
+
+@pytest.mark.parametrize("source", ["torch", "jax"])
+def test_slot_handoff_continues_token_identically(jax_container, torch_container, source):
+    """Prefill on one engine, export each slot after its first token,
+    adopt and import it into a second TorchEngine, decode there: the
+    tokens equal those of one engine serving everything."""
+    kw = dict(slots=2, max_len=48, chunk=8, paged=True)
+    cfg = get_config(ARCH).reduced()
+    jserver = JaxServer(jax_get_config(ARCH).reduced(), jax_container, **kw)
+    params = jax.tree.map(np.asarray, jserver.engine.params)
+    seed = _seed("handoff", source)
+    whole = Server(cfg, torch_container, device="cpu", params=params, **kw)
+    for r in _requests(Request, seed, n=4):
+        whole.submit(r)
+    whole.run()
+
+    if source == "jax":
+        src_engine, src_cls, src_sched = jserver.engine, JaxRequest, JaxScheduler
+    else:
+        src_engine = TorchEngine(cfg, torch_container, device="cpu", params=params, **kw)
+        src_cls, src_sched = Request, Scheduler
+    handoffs = []
+
+    def export(req):
+        arrays, pages_used = src_engine.export_slot(req.slot, req.next_pos)
+        handoffs.append((req, arrays, pages_used))
+
+    src = src_sched(src_engine, on_handoff=export)
+    reqs = _requests(src_cls, seed, n=4)
+    for r in reqs:
+        assert src.submit(r)
+    _drain(src)
+    assert src.handed_off == len(handoffs) > 0
+
+    dst_engine = TorchEngine(cfg, torch_container, device="cpu", params=params, **kw)
+    dst = Scheduler(dst_engine)
+    adopted = {}
+    pending = list(handoffs)
+    while pending or not dst.idle:
+        if pending:
+            req, arrays, pages_used = pending[0]
+            item = Request(rid=req.rid, prompt=np.asarray(req.prompt, np.int32),
+                           max_new=req.max_new, tokens=list(req.tokens),
+                           next_pos=req.next_pos, order=req.order)
+            if dst.adopt(item):
+                dst_engine.import_slot(item.slot, arrays, pages_used)
+                adopted[item.rid] = item
+                pending.pop(0)
+                continue
+        dst.tick()
+    got = [adopted[r.rid].tokens if r.rid in adopted else r.tokens for r in reqs]
+    assert got == [r.tokens for r in whole.requests]
+
+
+def test_slot_handoff_needs_the_paged_cache(torch_container):
+    eng = TorchEngine(get_config(ARCH).reduced(), torch_container, slots=1, max_len=16,
+                      device="cpu")
+    with pytest.raises(ValueError, match="paged"):
+        eng.export_slot(0, 4)
+    with pytest.raises(ValueError, match="paged"):
+        eng.import_slot(0, {}, 1)
+
+
+@pytest.mark.parametrize("option", [{"quantize": "int8"}, {"quantize": "fp8"}])
 def test_unported_engine_options_raise(torch_container, option):
     with pytest.raises(NotImplementedError):
+        TorchEngine(get_config(ARCH).reduced(), torch_container, slots=1, max_len=16,
+                    device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [{"paged": True, "prefill_mode": "decode"}, {"window": 0}])
+def test_engine_refuses_what_the_jax_engine_refuses(torch_container, option):
+    with pytest.raises(ValueError):
         TorchEngine(get_config(ARCH).reduced(), torch_container, slots=1, max_len=16,
                     device="cpu", **option)
 
@@ -114,6 +236,13 @@ def test_cli_serves_on_cpu(capsys):
     assert main(["--device", "cpu", "--requests", "3", "--max-new", "3"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests / 9 tokens" in out and "device=cpu" in out
+
+
+def test_cli_serves_paged_and_windowed_on_cpu(capsys):
+    assert main(["--device", "cpu", "--paged", "--window", "8", "--requests", "3",
+                 "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests / 9 tokens" in out and "paged pool: 9 pages x 16 tokens" in out
 
 
 @pytest.mark.parametrize("device,reduced", [("cpu", True), ("cuda", False), ("cuda:0", False)])
