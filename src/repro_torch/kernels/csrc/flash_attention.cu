@@ -38,6 +38,10 @@
 // the unwindowed launch's loads and arithmetic, and its output is
 // bit-identical.
 //
+// Paging and the window are template flags, so each of the four forms is
+// its own instance and the contiguous, unwindowed one runs the plain
+// loop: no row-offset table, no window test.
+//
 // Layout of one block: BQ query rows of TPR threads each, 256 threads —
 // 64 rows of 4 for prefill and chunks, 16 rows of 16 for decode-sized
 // launches (Sq <= 16), so a decode block still has 256 threads to stream
@@ -70,9 +74,9 @@ struct Params {
   void* o;
   const int* kv_len;        // (B,)
   const int* q_start;       // (B,)
-  const int* block_tables;  // (B, nblocks) physical pages, or null: contiguous
-  const int* win_start;     // (B,) window start rows, or null: unwindowed
-  int sq, sk, h, kv;        // sk: logical key extent (nblocks * page when paged)
+  const int* block_tables;  // (B, nblocks) physical pages (paged instances)
+  const int* win_start;     // (B,) window start rows (windowed instances)
+  int sq, sk, h, kv, group; // sk: logical key extent (nblocks * page when paged)
   int page, num_pages, nblocks;
   float scale;
   int causal, static_diag;
@@ -83,30 +87,26 @@ constexpr size_t smem_bytes() {
   return static_cast<size_t>(BQ * (DH + 1) + kBK * (DH + 1) + kBK * DH) * sizeof(float);
 }
 
-// Element offset of logical key row `krow` of batch row `bi` (KV head 0,
-// column 0), or -1 when the row is not to be loaded: past the logical
-// extent, below `klo`, or mapped to a page outside the pool.
-__device__ __forceinline__ long long key_row(const Params& p, const int* tbl, int bi, int krow,
-                                             int klo) {
+// Element offset of logical key row `krow` in the page pools (KV head 0,
+// column 0) through the batch row's table `tbl`, or -1 when the row is not
+// to be loaded: past the logical extent, below `klo`, or mapped to a page
+// outside the pool.
+__device__ __forceinline__ long long paged_row(const Params& p, const int* tbl, int krow,
+                                               int klo) {
   if (krow >= p.sk || krow < klo) return -1;
-  long long row;
-  if (tbl != nullptr) {
-    const int pg = tbl[krow / p.page];
-    if (pg < 0 || pg >= p.num_pages) return -1;
-    row = static_cast<long long>(pg) * p.page + krow % p.page;
-  } else {
-    row = static_cast<long long>(bi) * p.sk + krow;
-  }
-  return row * p.kv;
+  const int pg = tbl[krow / p.page];
+  if (pg < 0 || pg >= p.num_pages) return -1;
+  return (static_cast<long long>(pg) * p.page + krow % p.page) * p.kv;
 }
 
 // BQ query rows per block, TPR threads per row (BQ * TPR = 256 threads).
-// Two blocks per SM is what the 64-row layout's shared memory allows; the
-// bound lets ptxas spend up to 128 registers a thread (it picked 64-80
-// without it).  With the restrict-qualified K/V pointers it took the paged
-// and windowed kernel back to the contiguous-only version's chunk times
-// (PERF.md).
-template <typename T, int DH, int BQ, int TPR>
+// PAGED: k/v are page pools read through the row-offset table; WINDOWED:
+// keys below q_pos + ws are masked and tiles below the block's lowest
+// window start are skipped.  The bound of two blocks an SM (what the
+// 64-row layout's shared memory allows) lets ptxas spend up to 128
+// registers a thread; without it ptxas picks 56-92 and the 64-row chunk
+// and the decode run 13% slower (PERF.md).
+template <typename T, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
 __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   constexpr int NT = BQ * TPR;
   constexpr int NS = kBK / TPR;    // scores per thread per key tile
@@ -117,12 +117,12 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   float* q_s = smem;                         // [BQ][DH + 1]
   float* k_s = q_s + BQ * (DH + 1);          // [kBK][DH + 1]
   float* v_s = k_s + kBK * (DH + 1);         // [kBK][DH]
-  __shared__ long long row_off[kBK];         // the next tile's key rows (key_row)
+  __shared__ long long row_off[PAGED ? kBK : 1];  // the next tile's pool rows (paged_row)
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
   const T* __restrict__ k = static_cast<const T*>(p.k);
   const T* __restrict__ v = static_cast<const T*>(p.v);
-  const int sq = p.sq, h = p.h;
+  const int sq = p.sq, sk = p.sk, h = p.h;
   const int tid = threadIdx.x;
   const int r = tid / TPR;                   // query row within the block
   const int c = tid % TPR;                   // column phase within the row
@@ -130,17 +130,14 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   const int q0 = blockIdx.x * BQ;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
-  const int kvh = hi / (h / p.kv);
+  const int kvh = hi / p.group;
   const int kvl = p.kv_len[bi];
   const int qs = p.q_start[bi];
   const int qpos = q0 + r;
-  const bool windowed = p.win_start != nullptr;
-  const int ws = windowed ? p.win_start[bi] : 0;
+  const int ws = WINDOWED ? p.win_start[bi] : 0;
   // keys below the block's lowest window start are dead for all its rows
-  const int klo = windowed ? q0 + ws : 0;
-  const int* tbl = p.block_tables != nullptr
-                       ? p.block_tables + static_cast<long long>(bi) * p.nblocks
-                       : nullptr;
+  const int klo = WINDOWED ? q0 + ws : 0;
+  const int* tbl = PAGED ? p.block_tables + static_cast<long long>(bi) * p.nblocks : nullptr;
 
   for (int idx = tid; idx < BQ * DH / VN; idx += NT) {
     const int e = idx * VN;
@@ -158,12 +155,14 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
     for (int j = 0; j < VN; ++j) q_s[rr * (DH + 1) + dd + j] = vals[j] * p.scale;
   }
 
-  int kend = min(kvl, p.sk);
-  if (p.causal && p.static_diag) kend = min(kend, q0 + (p.sk - sq) + BQ);
+  int kend = min(kvl, sk);
+  if (p.causal && p.static_diag) kend = min(kend, q0 + (sk - sq) + BQ);
   const int nkb = kend > 0 ? (kend + kBK - 1) / kBK : 0;
   const int kb0 = klo > 0 ? klo / kBK : 0;   // first tile holding a live key
 
-  if (tid < kBK) row_off[tid] = key_row(p, tbl, bi, kb0 * kBK + tid, klo);
+  if constexpr (PAGED) {
+    if (tid < kBK) row_off[tid] = paged_row(p, tbl, kb0 * kBK + tid, klo);
+  }
 
   float m = kNegInf, l = 0.f;
   float acc[ND];
@@ -177,11 +176,19 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
       const int e = idx * VN;
       const int jj = e / DH, dd = e % DH;
       const int krow = k0 + jj;
-      const long long ro = row_off[jj];
       float kvals[VN], vvals[VN];
 #pragma unroll
       for (int j = 0; j < VN; ++j) kvals[j] = vvals[j] = 0.f;
-      if (ro >= 0) {
+      long long ro;
+      bool live;
+      if constexpr (PAGED) {
+        ro = row_off[jj];
+        live = ro >= 0;
+      } else {
+        ro = (static_cast<long long>(bi) * sk + krow) * p.kv;
+        live = krow < sk && (!WINDOWED || krow >= klo);
+      }
+      if (live) {
         const long long off = (ro + kvh) * DH + dd;
         repro::VecLoad<T>::load(k + off, kvals);
         if (krow < kvl) repro::VecLoad<T>::load(v + off, vvals);  // rows past kv_len stay 0
@@ -193,9 +200,11 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
       }
     }
     __syncthreads();
-    // the next tile's row offsets: row_off is not read again before the
-    // barrier at the top of the next iteration
-    if (tid < kBK) row_off[tid] = key_row(p, tbl, bi, k0 + kBK + tid, klo);
+    if constexpr (PAGED) {
+      // the next tile's row offsets: row_off is not read again before the
+      // barrier at the top of the next iteration
+      if (tid < kBK) row_off[tid] = paged_row(p, tbl, k0 + kBK + tid, klo);
+    }
 
     float s[NS];
 #pragma unroll
@@ -211,9 +220,9 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int kpos = k0 + c + TPR * i;
-      bool ok = kpos < kvl && kpos < p.sk;
+      bool ok = kpos < kvl && kpos < sk;
       if (p.causal) ok = ok && kpos <= qpos + qs;
-      if (windowed) ok = ok && kpos >= qpos + ws;
+      if constexpr (WINDOWED) ok = ok && kpos >= qpos + ws;
       s[i] = ok ? s[i] : kNegInf;
       mx = fmaxf(mx, s[i]);
     }
@@ -254,10 +263,10 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   }
 }
 
-template <typename T, int DH, int BQ, int TPR>
+template <typename T, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
 int launch(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH, BQ>();
-  auto kernel = &flash_kernel<T, DH, BQ, TPR>;
+  auto kernel = &flash_kernel<T, DH, BQ, TPR, PAGED, WINDOWED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -266,11 +275,20 @@ int launch(const Params& p, int b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int DH, int BQ, int TPR>
+int launch_form(const Params& p, int b, cudaStream_t stream) {
+  const bool paged = p.block_tables != nullptr, windowed = p.win_start != nullptr;
+  if (paged && windowed) return launch<T, DH, BQ, TPR, true, true>(p, b, stream);
+  if (paged) return launch<T, DH, BQ, TPR, true, false>(p, b, stream);
+  if (windowed) return launch<T, DH, BQ, TPR, false, true>(p, b, stream);
+  return launch<T, DH, BQ, TPR, false, false>(p, b, stream);
+}
+
 template <typename T, int DH>
 int launch_rows(const Params& p, int b, cudaStream_t stream) {
   // decode-sized launches: 16 rows of 16 threads; otherwise 64 rows of 4
-  if (p.sq <= 16) return launch<T, DH, 16, 16>(p, b, stream);
-  return launch<T, DH, 64, 4>(p, b, stream);
+  if (p.sq <= 16) return launch_form<T, DH, 16, 16>(p, b, stream);
+  return launch_form<T, DH, 64, 4>(p, b, stream);
 }
 
 template <typename T>
@@ -300,8 +318,9 @@ int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k
                                  const int* win_start, int b, int sq, int sk, int h, int kv,
                                  float scale, int causal, int static_diag, void* stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
-  const Params p{q,  k,  v,  o,    kv_len,    q_start, block_tables, win_start, sq,
-                 sk, h,  kv, page, num_pages, nblocks, scale,        causal,    static_diag};
+  const Params p{q,  k,  v,      o,    kv_len,    q_start, block_tables, win_start,
+                 sq, sk, h,      kv,   h / kv,    page,    num_pages,    nblocks,
+                 scale,  causal, static_diag};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:

@@ -50,12 +50,9 @@ def _rows(x, default: int, b: int, device) -> torch.Tensor:
     return t.expand(b).contiguous()
 
 
-def _check_table(block_tables, page_size, q: torch.Tensor, k: torch.Tensor) -> int:
-    """Check a paged call's table against q and the pools; returns the page."""
+def _check_table(block_tables, q: torch.Tensor) -> None:
+    """Check a paged call's table against q: dtype, shape, device, layout."""
     b = q.shape[0]
-    page = k.shape[1] if page_size is None else page_size
-    if k.shape[1] != page:
-        raise ValueError(f"flash_attention: pool page {k.shape[1]} != page_size {page}")
     if not isinstance(block_tables, torch.Tensor) or block_tables.dtype != torch.int32:
         raise TypeError("flash_attention: block_tables must be an int32 tensor")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
@@ -65,28 +62,27 @@ def _check_table(block_tables, page_size, q: torch.Tensor, k: torch.Tensor) -> i
         raise ValueError("flash_attention: block_tables must be on q's device")
     if not block_tables.is_contiguous():
         raise ValueError("flash_attention: block_tables must be contiguous")
-    return page
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len=None, q_start=None, *, causal: bool = True,
                     scale: float | None = None, op: str = "attention",
-                    block_tables: torch.Tensor | None = None, page_size: int | None = None,
-                    window=None) -> torch.Tensor:
+                    block_tables: torch.Tensor | None = None, window=None) -> torch.Tensor:
     """q (B, Sq, H, Dh), k/v (B, Sk, KV, Dh) -> (B, Sq, H, Dh) in q's dtype.
 
     kv_len: () or (B,) int — keys at positions >= kv_len are masked
     (None -> Sk).  q_start: () or (B,) int — global position of query 0
     for the causal mask (None -> Sk - Sq, the static prefill diagonal).
     block_tables: (B, nblocks) int32 on q's device — k/v are then
-    (P, page, KV, Dh) pools (page_size: None -> k.shape[1]) and
+    (P, page, KV, Dh) pools, the page is k.shape[1], and
     Sk = nblocks * page.  window: int, () or (B,) int — sliding-window width.
     """
     b, sq, h, dh = q.shape
     kv = k.shape[2]
     paged = block_tables is not None
     if paged:
-        page = _check_table(block_tables, page_size, q, k)
+        _check_table(block_tables, q)
+        page = k.shape[1]
         nblocks = block_tables.shape[1]
         sk = nblocks * page
         want = (k.shape[0], page, kv, dh)

@@ -150,10 +150,8 @@ def _cuda_decode_attention(q, k_cache, v_cache, pos, block_tables=None, window=N
     # block_tables the caches are page pools (page = the pool's second
     # dim); with window only the trailing `window` slots are attended
     _full_precision_only(k_scale, v_scale)
-    page = k_cache.shape[1] if block_tables is not None else None
     return flash_attention(q, k_cache, v_cache, kv_len=pos + 1, causal=False, scale=scale,
-                           window=window, block_tables=block_tables, page_size=page,
-                           op="decode_attention")
+                           window=window, block_tables=block_tables, op="decode_attention")
 
 
 def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=None,
@@ -162,10 +160,9 @@ def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=No
     # query i (global position pos+i) sees cache keys <= pos+i, and the
     # kv_len mask hides slots past the chunk's own freshly written tail
     _full_precision_only(k_scale, v_scale)
-    page = k_cache.shape[1] if block_tables is not None else None
     return flash_attention(q, k_cache, v_cache, kv_len=pos + q.shape[1], q_start=pos,
                            causal=True, scale=scale, window=window,
-                           block_tables=block_tables, page_size=page, op="chunk_attention")
+                           block_tables=block_tables, op="chunk_attention")
 
 
 def _ref_attention(q, k, v, *, causal=True, scale=None):

@@ -157,14 +157,13 @@ def attention_decode(params, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     new-token index (continuous batching).  With `block_tables`
     ((B, nblocks) int32 on the device) the cache k/v are page pools
     (P, page, KV, Dh) shared by all slots: the write scatters through the
-    table (`write_at`, see `_paged_decode_write`) and the op gathers
+    table at `write_at` (`paged_write_index`, computed once per tick by
+    the caller and required with `block_tables`) and the op gathers
     through it.  With `window` only the trailing `window` cache slots are
     attended; out-of-window pages may already have been recycled.
     """
     q, k, v = _qkv(params, x, cfg, pos[:, None])
     if block_tables is not None:
-        if write_at is None:
-            write_at = paged_write_index(pos, block_tables, cache["k"].shape[1])
         k_cache = _paged_decode_write(cache["k"], k, write_at)
         v_cache = _paged_decode_write(cache["v"], v, write_at)
     else:
@@ -188,8 +187,9 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
     With `block_tables` (the prefilling slot's (1, nblocks) int32 table on
     the device, B == 1) the cache k/v are page pools, and the serving
     invariant page == C makes the chunk's write exactly one page:
-    `write_page`, the physical page block_tables[0, pos // page] (read
-    from the table when not given).  With `window` each chunk query
+    `write_page`, the physical page block_tables[0, pos // page], which
+    the caller reads from its host copy of the table (required with
+    `block_tables`).  With `window` each chunk query
     attends only its trailing `window` keys.
     """
     c = x.shape[1]
@@ -199,8 +199,6 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
         page = cache["k"].shape[1]
         if c != page:
             raise ValueError(f"paged prefill requires chunk == page, {c} != {page}")
-        if write_page is None:
-            write_page = int(block_tables[0, pos // page])
         cache["k"][write_page] = k[0].to(cache["k"].dtype)
         cache["v"][write_page] = v[0].to(cache["v"].dtype)
         k_cache, v_cache = cache["k"], cache["v"]

@@ -378,8 +378,8 @@ def test_window_past_kv_len_is_bit_identical(op):
 
 @pytest.mark.parametrize("arg", ["block_tables", "window"])
 def test_paged_and_windowed_forms_run(arg):
-    """The forms that raised before this slice run through every entry
-    point: the refs, the CUDA adapters' CPU path and the bound ops."""
+    """The paged and windowed forms run through every entry point: the
+    refs, the CUDA adapters' CPU path and the bound ops."""
     q, k = torch.ones(1, 1, 2, 8), torch.ones(1, 4, 2, 8)
     extra = {"block_tables": torch.zeros(1, 1, dtype=torch.int32),
              "window": torch.ones(1, dtype=torch.int32)}[arg]
@@ -410,8 +410,6 @@ def test_wrapper_checks_the_block_table_on_every_device():
         flash_attention(q, pool, pool, block_tables=table[:1])
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, pool, pool, block_tables=torch.ones(3, 2, dtype=torch.int32).T)
-    with pytest.raises(ValueError, match="page_size"):
-        flash_attention(q, pool, pool, block_tables=table, page_size=8)
     with pytest.raises(ValueError, match="do not match"):
         flash_attention(q, pool, pool[:, :, :1], block_tables=table)
 
