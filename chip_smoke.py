@@ -33,6 +33,25 @@ Phases, each one printed line per case, each raising on failure:
                A's and D's E's.  The whole prefill through the plain binding
                is printed beside it for scale, and windowed_attention runs
                once through the deployed binding.
+  6. moe     — the MoE path, moonshot-v1-16b-a3b at its published widths
+               (its kernel cases run with phase 3, before any model is
+               built): the moe_gmm kernel against moe_gmm_exact at the expert
+               shapes [64, 2048, 1408] and [64, 1408, 2048], fp32 and bf16,
+               at T = 24 (decode, routed, empty experts), 768 (a 128-token
+               chunk x top-6), 7896 (the whole prompt of request 0) and 768
+               rows in one expert, each launch pair torch.equal; chunk and
+               decode attention at its H = KV = 16 geometry; then 2 layers
+               fp32, CUDA binding against plain for prefill_into and decode
+               (every call <= 1024 rows, where the plain binding is
+               dropless) and the CUDA binding's whole-prompt prefill (1800
+               rows) against its chunked prefill, with one MoE layer run under
+               torch.cuda.set_sync_debug_mode("error"): it must read nothing
+               back to the host; then full moonshot (48 layers, bf16, 57.8
+               GB of seeded weights) serving the same 8 requests: run M
+               contiguous, one whole-prompt Model.prefill, and run MP paged
+               on 25 pages.  MP's tokens must equal M's; every run launches
+               exactly steps x 48 x 3 moe_gmm, steps x 48 attention and
+               steps x 97 rmsnorm.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
@@ -52,6 +71,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen2.5-14b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
+GMM_PER_LAYER = 3   # w_gate, w_in, w_out: one moe_gmm launch each
 SEED = 0
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_attention_conformance.py
 POISON = 50.0       # park-page fill, as tests/test_attention_conformance.py
@@ -66,11 +87,11 @@ SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:38"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:186"),
+    "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:102"),
 }
 STILL_TO_PORT = [
     "src/repro/kernels/flash_attention.py:186 quantized-KV form",
     "src/repro/kernels/quant_matmul.py:45",
-    "src/repro/kernels/moe_gmm.py:102",
     "src/repro/kernels/ssd_scan.py:91",
 ]
 
@@ -166,7 +187,7 @@ def _record(report, key, label, dtype_name, err, k_ms, p_ms, lib_ms, bnd, main_c
     b_ms, b_by = bnd
     print(f"[kernels] {key:<32} {label:<40} {dtype_name:<8} max_abs_err {err:.3g} "
           f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms library "
-          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} bound {b_ms:.4f} ms ({b_by})")
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} bound {b_ms:.4f} ms ({b_by})")
     if main_case:
         report[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -574,7 +595,7 @@ def _drive(torch, np, cfg, container, label, **engine_kw) -> dict:
     peak = torch.cuda.max_memory_allocated()
     steps = (eng.prefill_calls, eng.decode_calls)
     # drop the checking wrappers: they close over the engine, and the cycle
-    # would keep its 29.5 GB of weights alive after the run
+    # would keep its weights (29.5 or 57.8 GB) alive after the run
     del eng.prefill_step, eng.decode_step
 
     tokens = sum(len(r.tokens) for r in reqs)
@@ -604,10 +625,12 @@ def _drive(torch, np, cfg, container, label, **engine_kw) -> dict:
     if nonfinite:
         fail("serve", f"{label}: non-finite or misshapen logits at {nonfinite[:4]}")
     # every launch of the run is one of its steps' ops: a layer's attention
-    # per step, and 2 norms per layer plus the final one
+    # per step, 2 norms per layer plus the final one, and a MoE layer's
+    # three grouped matmuls
     n = cfg.num_layers
     want = {"chunk_attention": steps[0] * n, "decode_attention": steps[1] * n,
-            "rmsnorm": (steps[0] + steps[1]) * (2 * n + 1)}
+            "rmsnorm": (steps[0] + steps[1]) * (2 * n + 1),
+            "moe_gmm": (steps[0] + steps[1]) * n * GMM_PER_LAYER if cfg.num_experts else 0}
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
@@ -734,6 +757,266 @@ def phase_serve_modes(torch, contiguous: dict) -> dict:
     return {**runs, "windowed_attention": wlaunches["windowed_attention"]}
 
 
+# --------------------------------------------------------------------------- #
+# the MoE path: moonshot-v1-16b-a3b
+# --------------------------------------------------------------------------- #
+def _routed_sizes(torch, gen, tokens, e, k):
+    """Group sizes (E,) int32 on the card of `tokens` tokens each routed to
+    k distinct experts drawn at random: what top-k routing gives."""
+    pick = torch.rand((tokens, e), generator=gen, device="cuda").argsort(dim=1)[:, :k]
+    return torch.bincount(pick.reshape(-1), minlength=e).to(torch.int32)
+
+
+def _library_gmm(torch, x, w, gs, want, dn):
+    """One PyTorch call computing the grouped matmul, where the card's torch
+    has one (torch._grouped_mm, bf16): a callable, held against `want`
+    first, or None."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or dn != "bfloat16":
+        return None
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        got = fn(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError):
+        return None
+    tol = TOLS[dn]
+    if got.shape != want.shape or not torch.allclose(got.float(), want.float(), atol=tol,
+                                                     rtol=tol):
+        return None
+    return lambda: fn(x, w, offs=offs)
+
+
+def phase_kernels_moe(torch, flush) -> dict:
+    """moe_gmm against moe_gmm_exact at moonshot's expert shapes, and the
+    flash kernel's chunk and decode forms at its H = KV = 16 geometry;
+    returns the main-path cases (bf16) keyed for the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_ref import chunk_attention_ref, decode_attention_ref
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.moe_gmm_ref import moe_gmm_exact
+
+    cfg = get_config(MOE_ARCH)
+    d, e, f, k = cfg.d_model, cfg.num_experts, cfg.expert_d_ff, cfg.top_k
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    report = {}
+    one = torch.zeros(e, dtype=torch.int32, device="cuda")
+    one[17] = 768
+    # (label, group sizes): decode of 4 slots, a 128-token chunk, request
+    # 0's whole 1316-token prompt (above the plain binding's 1024-row
+    # dropless limit: the kernel stays dropless), every row in one expert
+    cases = [("T=24 decode", _routed_sizes(torch, gen, 4, e, k)),
+             ("T=768 chunk", _routed_sizes(torch, gen, 128, e, k)),
+             ("T=7896 whole prompt", _routed_sizes(torch, gen, 1316, e, k)),
+             ("T=768 one expert", one)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        es = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_BF16_TC if dn == "bfloat16" else PEAK_FP32
+        for din, dout in ((d, f), (f, d)):
+            # the scaled init's spread, so fp32 sums over D stay inside TOLS
+            w = (torch.randn((e, din, dout), generator=gen, device="cuda") / din ** 0.5).to(dtype)
+            for label, gs in cases:
+                t = int(gs.sum())
+                x = torch.randn((t, din), generator=gen, device="cuda").to(dtype)
+                full = f"{label} w [{e}, {din}, {dout}]"
+                got = moe_gmm(x, w, gs)
+                want = moe_gmm_exact(x, w, gs)
+                err = _check("kernels", f"moe_gmm {full}", got, want, dn)
+                again = moe_gmm(x, w, gs)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail("kernels", f"moe_gmm {full} {dn}: two launches differ")
+                lib = _library_gmm(torch, x, w, gs, want, dn)
+                used = int((gs > 0).sum())
+                nbytes = (t * din + t * dout) * es + used * din * dout * es + e * 4
+                _record(report, "moe_gmm", full + f" ({used} experts used)", dn, err,
+                        time_ms(torch, lambda: moe_gmm(x, w, gs), flush),
+                        time_ms(torch, lambda: moe_gmm_exact(x, w, gs), flush),
+                        None if lib is None else time_ms(torch, lib, flush),
+                        bound_ms(nbytes, 2 * t * din * dout, peak),
+                        dn == "bfloat16" and label == "T=768 chunk" and din == d)
+                del x, got, again, want
+            print(f"[kernels] moe_gmm {dn} w [{e}, {din}, {dout}]: every case bit-identical "
+                  "over two launches")
+            del w
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        # chunk and decode attention at H = KV = 16 (one query head a KV head)
+        c, cpos = 128, 1900
+        kc, vc = randn(1, MAX_LEN, kv, dh), randn(1, MAX_LEN, kv, dh)
+        q = randn(1, c, h, dh)
+        lim = cpos + torch.arange(c, device="cuda")[:, None]
+        mask = (torch.arange(MAX_LEN, device="cuda")[None, :] <= lim)[None, None]
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        err = _check("kernels", f"chunk_attention MHA-16 pos={cpos}",
+                     ops._cuda_chunk_attention(q, kc, vc, cpos),
+                     chunk_attention_ref(q, kc, vc, cpos), dn)
+        _record(report, "chunk_attention/mha16", f"C={c} pos={cpos} H=KV={h}", dn, err,
+                time_ms(torch, lambda: ops._cuda_chunk_attention(q, kc, vc, cpos), flush),
+                time_ms(torch, lambda: chunk_attention_ref(q, kc, vc, cpos), flush),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=mask), flush),
+                attn_bound(1, c, h, kv, dh, cpos + c, c * cpos + c * (c + 1) // 2, es, dn),
+                dn == "bfloat16")
+        positions = (100, 700, 1600, MAX_LEN - 1)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q, kc, vc = randn(4, 1, h, dh), randn(4, MAX_LEN, kv, dh), randn(4, MAX_LEN, kv, dh)
+        mask = (torch.arange(MAX_LEN, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        err = _check("kernels", "decode_attention MHA-16 B=4",
+                     ops._cuda_decode_attention(q, kc, vc, pos),
+                     decode_attention_ref(q, kc, vc, pos), dn)
+        keys = sum(p + 1 for p in positions)
+        _record(report, "decode_attention/mha16", f"B=4 Smax={MAX_LEN} H=KV={h}", dn, err,
+                time_ms(torch, lambda: ops._cuda_decode_attention(q, kc, vc, pos), flush),
+                time_ms(torch, lambda: decode_attention_ref(q, kc, vc, pos), flush),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=mask), flush),
+                attn_bound(4, 1, h, kv, dh, keys, keys, es, dn), dn == "bfloat16")
+        del q, kc, vc, qt, kt, vt
+    return report
+
+
+def phase_model_moe(torch) -> None:
+    """Moonshot at full width, 2 layers, fp32: the CUDA binding's logits
+    against the plain binding's for prefill_into (a 128-token chunk is 768
+    rows) and decode, and its whole-prompt prefill against its chunked
+    one; then one MoE layer under the sync debug mode."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch.bundle import make_bundle
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import moe_apply
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=2, dtype="float32")
+    runtime = Runtime()
+    cuda = runtime.deploy(make_bundle(MOE_ARCH), device="cuda")
+    runtime.cleanup()
+    plain = runtime.deploy(make_bundle(MOE_ARCH), device="cuda", native_ops=False)
+    runtime.cleanup()
+    m_cuda = Model(cfg, cuda.binding, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    m_plain = Model(cfg, plain.binding, device="cuda").load_params(
+        dict(m_cuda.named_parameters()))
+    rng = np.random.default_rng(SEED)
+
+    def compare(label, a, b):
+        rel = _rel(a, b)
+        print(f"[moe-model] {label:<44} logits {tuple(a.shape)} max|cuda-plain|/max|plain| "
+              f"{rel:.3g} (limit {MODEL_RTOL})")
+        if not bool(torch.isfinite(a).all()) or rel > MODEL_RTOL:
+            fail("moe-model", f"{label}: relative error {rel:.3g} (or non-finite logits)")
+
+    slots, max_len, chunk, slot = 3, 512, 128, 1
+    prompt = rng.integers(0, cfg.vocab_size, 300)
+    caches = {m: m.init_cache(slots, max_len) for m in (m_cuda, m_plain)}
+    for start in range(0, len(prompt), chunk):
+        n = min(chunk, len(prompt) - start)
+        buf = np.zeros((1, chunk), np.int64)
+        buf[0, :n] = prompt[start:start + n]
+        out = {m: m.prefill_into(buf, caches[m], slot, start, n)[0] for m in caches}
+    compare(f"prefill_into slot {slot}, 300 = 128+128+44", out[m_cuda], out[m_plain])
+    # the whole prompt is 1800 moe_gmm rows a layer: dropless through the
+    # kernel (not through the plain binding), so it must agree with the
+    # chunked prefill
+    whole = m_cuda.prefill({"tokens": prompt[None]})[0]
+    rel = _rel(whole, out[m_cuda])
+    print(f"[moe-model] cuda binding: whole-prompt prefill ({len(prompt) * cfg.top_k} rows a "
+          f"layer) vs prefill_into, max rel diff {rel:.3g} (limit {MODEL_RTOL})")
+    if rel > MODEL_RTOL:
+        fail("moe-model", "whole-prompt prefill disagrees with chunked prefill")
+    token = rng.integers(0, cfg.vocab_size, (slots, 1))
+    pos = np.array([5, len(prompt), max_len - 1], np.int32)
+    out = {m: m.decode(token, caches[m], pos)[0] for m in caches}
+    compare("decode pos [5, 300, 511 parked]", out[m_cuda], out[m_plain])
+
+    # the card path of one MoE layer reads nothing back to the host: no
+    # .item()/.tolist()/.cpu() of the routing or the group sizes
+    x = torch.randn((1, chunk, cfg.d_model), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe_apply(m_cuda.layers[0].moe, x, cfg, cuda.binding)
+    except RuntimeError as exc:
+        fail("moe-model", f"moe_apply synchronised with the host on the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[moe-model] moe_apply of a {chunk}-token chunk under set_sync_debug_mode('error'): "
+          f"no host synchronisation, output {tuple(y.shape)} finite "
+          f"{bool(torch.isfinite(y).all())}")
+
+
+def phase_serve_moe(torch) -> dict:
+    """Run M (contiguous), the whole-prompt prefill of request 0, and run
+    MP (paged, 25 pages) on full moonshot; MP's tokens must equal M's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import _build
+    from repro_torch.launch.bundle import make_bundle
+
+    cfg = get_config(MOE_ARCH)
+    print(f"[moe-serve] device memory allocated before the MoE runs: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    runtime = Runtime()
+    container = runtime.deploy(make_bundle(MOE_ARCH), device="cuda")
+    for r in container.binding.reports:
+        print(f"[moe-serve] bind {r.op:<18} swapped={r.swapped} provider={r.bound} ({r.reason})")
+        if not (r.swapped and r.bound == "cuda"):
+            fail("moe-serve", f"op {r.op} is not bound to its CUDA kernel: {r.reason}")
+    runs = {}
+    m = _drive(torch, np, cfg, container, "M contiguous")
+    eng = m.pop("server").engine
+    first = m["reqs"][0]
+    _build.LAUNCHES.clear()
+    whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
+    torch.cuda.synchronize()
+    whole_launches = dict(_build.LAUNCHES)
+    whole_np = whole.cpu().numpy()
+    agree = int(np.argmax(whole_np)) == first.tokens[0]
+    print(f"[moe-serve] Model.prefill of request 0 ({first.prompt_len} tokens, "
+          f"{first.prompt_len * cfg.top_k} moe_gmm rows a layer): logits {whole_np.shape} "
+          f"finite={bool(np.isfinite(whole_np).all())}; argmax equals run M's first token "
+          f"{agree} (bf16, informational); launches {whole_launches}")
+    n = cfg.num_layers
+    if not np.isfinite(whole_np).all() or whole_np.shape != (cfg.vocab_size,):
+        fail("moe-serve", "Model.prefill logits not finite or misshapen")
+    if whole_launches != {"attention": n, "rmsnorm": 2 * n + 1, "moe_gmm": GMM_PER_LAYER * n}:
+        fail("moe-serve", f"whole-prompt prefill launched {whole_launches}")
+    runs["M"] = m
+    runs["prefill"] = whole_launches
+    # run M's 57.8 GB of weights go before MP draws its own (the same seed,
+    # so the same weights)
+    del eng, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp = _drive(torch, np, cfg, container, "MP paged, 25 pages", paged=True, num_pages=25)
+    mp.pop("server")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["MP"] = mp
+    peak = mp["stats"]["pages-allocated-peak"]
+    print(f"[moe-serve] MP: pages-allocated-peak {int(peak)} (limit 24); tokens equal to M's: "
+          f"{mp['tokens'] == m['tokens']}")
+    if peak > 24:
+        fail("moe-serve", f"MP allocated {peak} pages of 24")
+    if mp["tokens"] != m["tokens"]:
+        fail("moe-serve", "MP (paged) tokens differ from M's (contiguous)")
+    runtime.cleanup()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -755,6 +1038,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")   # > the 50 MB L2
     cases = phase_kernels(torch, flush)
     cases.update(phase_kernel_forms(torch, flush))
+    cases.update(phase_kernels_moe(torch, flush))
     del flush
     phase_model(torch)
     torch.cuda.empty_cache()
@@ -762,6 +1046,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     modes = phase_serve_modes(torch, serve["A"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_serve_moe(torch)
 
     # (kernels-line entry, the run that drove it, the op it counts under)
     entries = [("rmsnorm", serve["A"], "rmsnorm"),
@@ -774,11 +1064,14 @@ def main() -> int:
     entries.append(("windowed_attention",
                     {"launches": {"windowed_attention": modes["windowed_attention"]}},
                     "windowed_attention"))
+    entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
+                ("decode_attention/mha16", moe["M"], "decode_attention"),
+                ("moe_gmm", moe["M"], "moe_gmm")]
     kernels = []
     for key, run, op in entries:
-        kernel = "rmsnorm" if op == "rmsnorm" else "flash_attention"
+        kernel = op if op in ("rmsnorm", "moe_gmm") else "flash_attention"
         source, replaces = SOURCES[kernel]
-        kernels.append({"name": kernel if op == "rmsnorm" else f"{kernel}/{key}",
+        kernels.append({"name": kernel if kernel == op else f"{kernel}/{key}",
                         "route": "cuda", "source": source, "replaces": replaces,
                         "launches": run["launches"][op], **cases[key],
                         # the line is printed only when every phase passed

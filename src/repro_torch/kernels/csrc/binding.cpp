@@ -17,6 +17,9 @@ int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k
                                  const int* win_start, int b, int sq, int sk, int h, int kv,
                                  float scale, int causal, int static_diag, void* stream);
 
+int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
+                         void* out, long long t, int d, int f, int e, void* stream);
+
 extern "C" {
 
 int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long rows, int d,
@@ -34,6 +37,12 @@ int repro_flash_attention(int dtype, int dh, const void* q, const void* k, const
       dtype, dh, q, k, v, o, static_cast<const int*>(kv_len), static_cast<const int*>(q_start),
       static_cast<const int*>(block_tables), nblocks, page, num_pages,
       static_cast<const int*>(win_start), b, sq, sk, h, kv, scale, causal, static_diag, stream);
+}
+
+int repro_moe_gmm(int dtype, const void* x, const void* w, const void* group_sizes, void* out,
+                  long long t, int d, int f, int e, void* stream) {
+  return repro_moe_gmm_launch(dtype, x, w, static_cast<const int*>(group_sizes), out, t, d, f,
+                              e, stream);
 }
 
 const char* repro_error_string(int code) {

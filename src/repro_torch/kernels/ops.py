@@ -8,15 +8,16 @@ what this port implements:
   * a plain PyTorch reference (provider ``torch-ref``) for ``rmsnorm``,
     ``attention``, ``windowed_attention``, ``chunk_attention`` and
     ``decode_attention`` (the last two in their contiguous and paged, full
-    and windowed forms);
-  * the hand-written CUDA kernels (provider ``cuda``) for the same five,
-    behind the ``cuda_kernels`` platform feature.  Binding one builds the
-    kernel library.
+    and windowed forms), and ``moe_gmm`` (`moe_gmm_ref`: dropless at
+    <= 1024 rows, the capacity-truncated baseline above, as in the JAX
+    package);
+  * the hand-written CUDA kernels (provider ``cuda``) for the same six,
+    behind the ``cuda_kernels`` platform feature (``moe_gmm``'s is
+    dropless at any row count).  Binding one builds the kernel library.
 
-``ssd_scan``, ``moe_gmm`` and ``quant_matmul`` are declared but not
-ported yet: a deployment lists them as unported.  The quantized-KV form
-of decode and chunk attention (``k_scale``/``v_scale``) raises
-NotImplementedError.
+``ssd_scan`` and ``quant_matmul`` are declared but not ported yet: a
+deployment lists them as unported.  The quantized-KV form of decode and
+chunk attention (``k_scale``/``v_scale``) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from repro_torch.kernels.flash_attention_ref import (
     decode_attention_ref,
     windowed_attention_ref,
 )
+from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm_ref import moe_gmm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm_ref import rmsnorm_ref
 
@@ -181,6 +184,7 @@ _REFS = {
     "windowed_attention": _ref_windowed_attention,
     "decode_attention": decode_attention_ref,
     "chunk_attention": chunk_attention_ref,
+    "moe_gmm": moe_gmm_ref,
 }
 
 _NATIVES = {
@@ -189,6 +193,7 @@ _NATIVES = {
     "windowed_attention": _cuda_windowed_attention,
     "decode_attention": _cuda_decode_attention,
     "chunk_attention": _cuda_chunk_attention,
+    "moe_gmm": moe_gmm,
 }
 
 PORTED_OPS: tuple[str, ...] = tuple(sorted(_REFS))

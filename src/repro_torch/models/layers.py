@@ -212,8 +212,10 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
 # --------------------------------------------------------------------------- #
 # dense MLP
 # --------------------------------------------------------------------------- #
-def mlp_schema(cfg: ModelConfig) -> dict[str, LeafSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_schema(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, LeafSpec]:
+    """SiLU-GLU MLP leaves of width ``d_ff`` (default ``cfg.d_ff``; the MoE
+    shared experts pass theirs)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_in": LeafSpec((d, f), ("embed", "ff"), init="scaled"),
         "w_out": LeafSpec((f, d), ("ff", "embed"), init="scaled"),
@@ -222,6 +224,6 @@ def mlp_schema(cfg: ModelConfig) -> dict[str, LeafSpec]:
 
 
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-GLU MLP."""
+    """SiLU-GLU MLP; its width is the leaves'."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
     return h @ params["w_out"]

@@ -1,30 +1,34 @@
-"""The dense text decoder as an `nn.Module`.
+"""The text decoder as an `nn.Module`: dense or mixture-of-experts.
 
-A port of the dense family of `repro/models/model.py`: the same schema
-(embedding, a stack of [pre-norm, attention, post-norm, SiLU-GLU MLP]
-blocks, final norm, LM head), the same cache layout and the same serving
-entry points — `prefill`, `prefill_into` (chunked prefill into one slot of
-a batched cache) and `decode` (one continuous-batching tick), each over a
-contiguous cache (`init_cache`) or a paged one (`init_paged_cache`: k/v
-page pools shared by all slots, addressed through per-slot block tables),
-with an optional sliding window — plus `export_paged_slot` /
-`import_paged_slot`, the KV handoff's page copy.
+A port of the dense and MoE families of `repro/models/model.py`: the
+same schema (embedding, a stack of [pre-norm, attention, post-norm,
+SiLU-GLU MLP or MoE] blocks, final norm, LM head), the same cache layout
+and the same serving entry points — `prefill`, `prefill_into` (chunked
+prefill into one slot of a batched cache) and `decode` (one
+continuous-batching tick), each over a contiguous cache (`init_cache`) or
+a paged one (`init_paged_cache`: k/v page pools shared by all slots,
+addressed through per-slot block tables), with an optional sliding
+window — plus `export_paged_slot` / `import_paged_slot`, the KV
+handoff's page copy.
 
 The JAX model scans one stacked parameter group over its blocks; here each
 block is a module of an `nn.ModuleList` holding its own slice of the stack
 (``decoder/p0/attn/wq[i]`` is ``layers.i.attn.wq``).  `Model.schema()` is
 the JAX-shaped stacked tree, so shapes compare one to one.
 
-The four kernel ops run through `binding` (op name -> callable), which the
+The kernel ops run through `binding` (op name -> callable), which the
 caller always passes — a deployed Container's binding; there is no
-implicit one.
+implicit one.  A MoE block (every block of a config with ``moe_every ==
+1``: moonshot, phi3.5-moe) runs `repro_torch.models.moe.moe_apply` after
+its post-norm, its grouped matmuls through ``binding["moe_gmm"]``.
 
 Parameters are created on the meta device and bound by `load_params`
 (weights from elsewhere, e.g. `repro_torch.convert.params_from_jax`) or
 `init` (drawn from a seeded `torch.Generator` on the model's device).
 
-MoE, SSM, encoder-decoder, vision and quantized paths are not ported:
-such configurations raise NotImplementedError.
+SSM, encoder-decoder, vision, tied-embedding, interleaved-MoE and
+quantized paths are not ported: such configurations raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.schema import LeafSpec, init_params, map_leaves, torch_dtype
 
 __all__ = ["Model", "flatten_params", "tree_items"]
@@ -53,11 +58,15 @@ def _stack(tree: Tree, n: int) -> Tree:
 
 
 class _Leaves(nn.Module):
-    """One parameter subtree: leaves by name, read as ``leaves["wq"]``."""
+    """One parameter subtree: leaves by name, read as ``leaves["wq"]``; a
+    nested subtree (the MoE's ``shared`` MLP) is a child `_Leaves`."""
 
-    def __init__(self, specs: Mapping[str, LeafSpec], dtype: torch.dtype):
+    def __init__(self, specs: Mapping[str, Any], dtype: torch.dtype):
         super().__init__()
         for name, spec in specs.items():
+            if isinstance(spec, Mapping):
+                self.add_module(name, _Leaves(spec, dtype))
+                continue
             t = torch.empty(spec.shape, dtype=torch_dtype(spec.dtype) if spec.dtype else dtype,
                             device="meta")
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
@@ -82,7 +91,7 @@ def flatten_params(tree: Tree) -> dict[str, torch.Tensor]:
         parts = path.split("/")
         if parts[0] == "decoder":
             if parts[1] != "p0":
-                raise ValueError(f"dense decoders have one pattern position, got {path}")
+                raise ValueError(f"one pattern position (period 1) is ported, got {path}")
             for i in range(leaf.shape[0]):
                 state[".".join(["layers", str(i)] + parts[2:])] = leaf[i]
         else:
@@ -103,11 +112,13 @@ def tree_items(tree: Tree, prefix: str = ""):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, binding, *, device: str | torch.device = "cuda"):
         super().__init__()
-        if (cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.activation != "silu_glu"
-                or cfg.num_experts or cfg.ssm_state or cfg.is_enc_dec
-                or cfg.modality != "text" or cfg.tie_embeddings):
+        if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
+                or cfg.activation != "silu_glu" or cfg.ssm_state or cfg.is_enc_dec
+                or cfg.modality != "text" or cfg.tie_embeddings
+                or (cfg.num_experts and cfg.moe_every != 1)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense, untied, RMSNorm + SiLU-GLU text decoders are ported")
+                f"{cfg.name}: only dense or all-MoE, untied, RMSNorm + SiLU-GLU text "
+                "decoders are ported")
         self.cfg = cfg
         self.binding = binding
         self.device = torch.device(device)
@@ -127,12 +138,16 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     def _layer_schema(self) -> Tree:
         cfg = self.cfg
-        return {
+        sch: Tree = {
             "pre_norm": L.norm_schema(cfg),
             "attn": L.attention_schema(cfg),
             "post_norm": L.norm_schema(cfg),
-            "mlp": L.mlp_schema(cfg),
         }
+        if cfg.is_moe_layer(0):
+            sch["moe"] = moe_schema(cfg)
+        else:
+            sch["mlp"] = L.mlp_schema(cfg)
+        return sch
 
     def schema(self) -> Tree:
         """The JAX model's schema tree (blocks stacked under decoder/p0)."""
@@ -183,8 +198,8 @@ class Model(nn.Module):
     def paged_cache_shapes(self, num_pages: int, page_size: int, slots: int) -> Tree:
         """Paged-cache entry shapes, as the JAX model's: attention k/v become
         page pools (layers, num_pages, page_size, KV, Dh) shared by all
-        slots.  ``slots`` sizes per-slot state, of which a dense decoder
-        has none."""
+        slots.  ``slots`` sizes per-slot state, of which an attention-only
+        decoder (dense or MoE) has none."""
         shape = (self.num_blocks, num_pages, page_size, self.cfg.num_kv_heads,
                  self.cfg.head_dim)
         return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
@@ -253,6 +268,8 @@ class Model(nn.Module):
             y, kv = L.attention_apply(blk.attn, h, cfg, binding, positions=positions)
         x = x + y
         h = L.norm_apply(blk.post_norm, x, cfg, binding)
+        if hasattr(blk, "moe"):
+            return x + moe_apply(blk.moe, h, cfg, binding), kv
         return x + L.mlp_apply(blk.mlp, h), kv
 
     def _embed(self, tokens) -> torch.Tensor:
@@ -334,8 +351,8 @@ class Model(nn.Module):
                window: int | None = None):
         """One batched decode tick.  token: (B, 1) int; pos: int, () or (B,)
         int — every row at its own position; active: accepted for the JAX
-        signature (it freezes recurrent state, which dense decoders have
-        none of — parked rows write at the position the scheduler parks;
+        signature (it freezes recurrent state, which attention-only
+        decoders have none of — parked rows write at the position the scheduler parks;
         paged: table row all zeros, the write lands in the park page).
         block_tables: (B, nblocks) int host array — the cache is paged.
         window: sliding-window decode, only the trailing `window` cache

@@ -296,7 +296,7 @@ def test_model_needs_a_binding():
 
 def test_unported_families_raise():
     cfg = get_config(ARCH).reduced()
-    for change in ({"family": "moe", "num_experts": 4}, {"tie_embeddings": True},
+    for change in ({"family": "ssm", "ssm_state": 16}, {"tie_embeddings": True},
                    {"norm": "layernorm"}):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), {}, device="meta")
