@@ -33,7 +33,9 @@ Phases, each one printed line per case, each raising on failure:
                A's and D's E's.  The whole prefill through the plain binding
                is printed beside it for scale, and windowed_attention runs
                once through the deployed binding.
-  6. moe     — the MoE path, moonshot-v1-16b-a3b at its published widths
+  6. moe     — the MoE path, the repo's moonshot-v1-16b-a3b config
+               (Moonlight-16B-A3B's widths; its 48 layers and MHA 16/16
+               are the repo's, not the published model's)
                (its kernel cases run with phase 3, before any model is
                built): the moe_gmm kernel against moe_gmm_exact at the expert
                shapes [64, 2048, 1408] and [64, 1408, 2048], fp32 and bf16,

@@ -43,8 +43,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
         raise ValueError("moe_gmm: group_sizes must be contiguous")
     if x.device.type == "cpu":
         return moe_gmm_exact(x, w, group_sizes)
-    lib = _build.library()
     out = torch.empty((t, f), dtype=x.dtype, device=x.device)
+    if t == 0 or f == 0:
+        return out                                                  # nothing to launch
+    lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.repro_moe_gmm(code, x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
                                 out.data_ptr(), t, d, f, e, _build.stream_of(x))

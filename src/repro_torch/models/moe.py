@@ -92,18 +92,14 @@ def _dense_oracle(x_flat, top_p, top_i, params, cfg: ModelConfig):
     return torch.einsum("ted,te->td", y_e, combine.to(y_e.dtype))
 
 
-def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, binding, *,
-              oracle: bool = False) -> torch.Tensor:
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, binding) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D) in x's dtype: the routed experts' output
     plus, where the config has them, the shared experts'."""
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     top_p, top_i = _route(x_flat, params["router"], cfg.top_k)
-    if oracle:
-        y = _dense_oracle(x_flat, top_p, top_i, params, cfg)
-    else:
-        y = _gmm_pairs(x_flat, top_p, top_i, params["w_in"], params["w_gate"],
-                       params["w_out"], cfg, binding)
+    y = _gmm_pairs(x_flat, top_p, top_i, params["w_in"], params["w_gate"],
+                   params["w_out"], cfg, binding)
     if cfg.n_shared_experts:
         y = y + mlp_apply(params["shared"], x).reshape(b * s, d).to(y.dtype)
     return y.reshape(b, s, d).to(x.dtype)

@@ -59,8 +59,9 @@ from repro_torch.kernels.ops import register_all
 from repro_torch.launch.bundle import make_bundle
 from repro_torch.launch.serve import Request, Server
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.models.layers import mlp_apply
 from repro_torch.models.model import Model
-from repro_torch.models.moe import moe_apply
+from repro_torch.models.moe import _dense_oracle, _route, moe_apply
 
 MOONSHOT, PHI = "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"
 ARCHS = (MOONSHOT, PHI)
@@ -180,6 +181,23 @@ def test_moe_gmm_exact_edges():
     assert out.eq(4).all()
 
 
+@pytest.mark.parametrize("t, f", [(0, 32), (8, 0)])
+def test_moe_gmm_counts_no_launch_when_there_is_nothing_to_compute(t, f, monkeypatch):
+    """Off the CPU an empty output launches nothing, so it neither builds
+    the library nor counts a launch.  (Meta tensors stand in for the card's:
+    they take the same branch and hold no data.)"""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    x = torch.empty(t, 64, device="meta")
+    w = torch.empty(4, 64, f, device="meta")
+    gs = torch.zeros(4, dtype=torch.int32, device="meta")
+    before = dict(_build.LAUNCHES)
+    assert moe_gmm(x, w, gs).shape == (t, f)
+    assert dict(_build.LAUNCHES) == before
+
+
 @pytest.mark.parametrize("bad", ["gs-dtype", "gs-length", "w-dtype", "contraction", "layout",
                                  "rank"])
 def test_moe_gmm_wrapper_checks_on_every_device(bad):
@@ -240,12 +258,24 @@ def test_moe_apply_matches_jax(arch, path):
     want, _ = jax_moe_apply(_tree(params, jnp.asarray), jnp.asarray(x), jcfg, ParallelCtx(),
                             jbind, oracle=oracle)
     tparams = _tree(params, torch.from_numpy)
-    got = moe_apply(tparams, torch.from_numpy(x), cfg, tbind, oracle=oracle)
+    apply = _oracle_apply if oracle else moe_apply
+    got = apply(tparams, torch.from_numpy(x), cfg, tbind)
     assert got.shape == x.shape and got.dtype == torch.float32
     _close(got, want, MODEL_TOL)
     if not oracle:
         # the sorted grouped-matmul path against every-expert-on-every-token
-        _close(got, moe_apply(tparams, torch.from_numpy(x), cfg, tbind, oracle=True), MODEL_TOL)
+        _close(got, _oracle_apply(tparams, torch.from_numpy(x), cfg, tbind), MODEL_TOL)
+
+
+def _oracle_apply(params, x, cfg, binding=None):
+    """The MoE layer with the dense oracle in place of the grouped matmuls:
+    the same routing, every expert on every token, plus the shared MLP."""
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+    y = _dense_oracle(x_flat, *_route(x_flat, params["router"], cfg.top_k), params, cfg)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(params["shared"], x).reshape(b * s, d).to(y.dtype)
+    return y.reshape(b, s, d).to(x.dtype)
 
 
 def test_moe_apply_runs_three_grouped_matmuls_on_the_layer_rows():
