@@ -33,7 +33,22 @@ Phases, each one printed line per case, each raising on failure:
                A's and D's E's.  The whole prefill through the plain binding
                is printed beside it for scale, and windowed_attention runs
                once through the deployed binding.
-  6. moe     — the MoE path, the repo's moonshot-v1-16b-a3b config
+  6. quant   — the quantized-weight path, qwen2.5-14b with int8 or fp8
+               weight codes and per-channel fp32 scales (its kernel cases
+               run with phase 3): quant_matmul against quant_matmul_ref at
+               the MLP and LM-head shapes (T = 4 decode, 128 a chunk, 1 the
+               chunk's LM head, 1316 a whole prompt), the quantization
+               grid's ragged shapes (also inside QMM_ENVELOPE of the fp32
+               product) and two split contractions, fp32 and bf16 x, each
+               launch pair torch.equal; then 2 layers fp32 in storage form,
+               CUDA binding against plain for prefill, prefill_into and
+               decode, and whole-prompt against chunked prefill; then full
+               qwen2.5-14b with its seeded weights quantized on the card
+               (15.19 GB of codes and scales): run Q8 int8 contiguous and
+               one whole-prompt Model.prefill, run Q8P int8 paged on 25
+               pages (its tokens must equal Q8's), run QF8 fp8 contiguous;
+               every step launches quant_matmul 3 x 48 + 1 times.
+  7. moe     — the MoE path, the repo's moonshot-v1-16b-a3b config
                (Moonlight-16B-A3B's widths; its 48 layers and MHA 16/16
                are the repo's, not the published model's)
                (its kernel cases run with phase 3, before any model is
@@ -75,12 +90,27 @@ ROOT = Path(__file__).resolve().parent
 ARCH = "qwen2.5-14b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 GMM_PER_LAYER = 3   # w_gate, w_in, w_out: one moe_gmm launch each
+
+
+def _qmm_per_step(layers: int) -> int:
+    """quant_matmul launches a step of a quantized dense model: w_gate, w_in
+    and w_out of every layer, and the LM head."""
+    return 3 * layers + 1
+
 SEED = 0
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_attention_conformance.py
 POISON = 50.0       # park-page fill, as tests/test_attention_conformance.py
 MAX_LEN = 2048      # the serve phase's slot length: 16 pages of 128
 WINDOW = 512        # the windowed serve runs' and kernel cases' W
 MODEL_RTOL = 1e-3   # phase 4: max |cuda - plain| / max |plain| over the logits
+# quant_matmul against the fp32 product of the unquantized weights, at the
+# quantization grid's shapes (tests/test_quant_conformance.py): set for a
+# D = 64 contraction, so held only there
+QMM_ENVELOPE = {"int8": 0.35, "fp8": 1.50}
+QMM_GRID = [(8, 32, 32), (60, 64, 64), (7, 48, 32), (16, 32, 64)]
+# ragged shapes whose contraction the wrapper splits (D = 1000: 16 ranges,
+# the last 40 rows), narrow and row tiles
+QMM_SPLIT = [(5, 1000, 48), (37, 1000, 144)]
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operation rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12          # float32 outside the tensor cores (TF32 off)
@@ -90,10 +120,11 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:186"),
     "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:102"),
+    "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:45"),
 }
 STILL_TO_PORT = [
     "src/repro/kernels/flash_attention.py:186 quantized-KV form",
-    "src/repro/kernels/quant_matmul.py:45",
     "src/repro/kernels/ssd_scan.py:91",
 ]
 
@@ -542,23 +573,30 @@ def _requests(np, cfg):
                     max_new=32) for i in range(8)]
 
 
-def _drive(torch, np, cfg, container, label, **engine_kw) -> dict:
+def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dict:
     """Serve the 8 requests through a Server on `container` with the given
-    engine options, its launch counts reset just before `server.run()` and
+    engine options (and `params`, a weight tree on the card, or else the
+    seeded init), its launch counts reset just before `server.run()` and
     read just after; fails unless every request finished with finite logits
     and the run launched exactly the kernels its steps need."""
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import Server
+    from repro_torch.models.layers import is_quantized
 
     t0 = time.perf_counter()
     server = Server(cfg, container, slots=4, max_len=MAX_LEN, chunk=128, device="cuda",
-                    seed=SEED, **engine_kw)
+                    seed=SEED, params=params, **engine_kw)
     torch.cuda.synchronize()
     eng = server.engine
-    n_params = sum(p.numel() for p in eng.model.parameters())
-    print(f"[serve] {label}: {cfg.name}, {cfg.num_layers} layers, {n_params} parameters in "
-          f"{cfg.dtype}, seeded init in {time.perf_counter() - t0:.1f} s, engine options "
-          f"{engine_kw or 'none (contiguous)'}")
+    by_dtype = {}
+    for p in eng.model.parameters():
+        key = str(p.dtype).removeprefix("torch.")
+        by_dtype[key] = by_dtype.get(key, 0) + p.numel() * p.element_size()
+    quantized = is_quantized(eng.model.lm_head["w"])
+    print(f"[serve] {label}: {cfg.name}, {cfg.num_layers} layers, "
+          f"{'storage-form weights given' if quantized else 'seeded init'} in "
+          f"{time.perf_counter() - t0:.1f} s, bound weight bytes {sum(by_dtype.values())} "
+          f"{by_dtype}, engine options {engine_kw or 'none (contiguous)'}")
 
     nonfinite = []
     step_s = {"prefill": [], "decode": []}   # host clock per step; each step ends
@@ -627,12 +665,14 @@ def _drive(torch, np, cfg, container, label, **engine_kw) -> dict:
     if nonfinite:
         fail("serve", f"{label}: non-finite or misshapen logits at {nonfinite[:4]}")
     # every launch of the run is one of its steps' ops: a layer's attention
-    # per step, 2 norms per layer plus the final one, and a MoE layer's
-    # three grouped matmuls
+    # per step, 2 norms per layer plus the final one, a MoE layer's three
+    # grouped matmuls, and with quantized weights a dense layer's three MLP
+    # matmuls plus the LM head
     n = cfg.num_layers
     want = {"chunk_attention": steps[0] * n, "decode_attention": steps[1] * n,
             "rmsnorm": (steps[0] + steps[1]) * (2 * n + 1),
-            "moe_gmm": (steps[0] + steps[1]) * n * GMM_PER_LAYER if cfg.num_experts else 0}
+            "moe_gmm": (steps[0] + steps[1]) * n * GMM_PER_LAYER if cfg.num_experts else 0,
+            "quant_matmul": (steps[0] + steps[1]) * _qmm_per_step(n) if quantized else 0}
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
@@ -757,6 +797,239 @@ def phase_serve_modes(torch, contiguous: dict) -> dict:
         fail("serve", f"windowed_attention through the binding launched {wlaunches}")
     runtime.cleanup()
     return {**runs, "windowed_attention": wlaunches["windowed_attention"]}
+
+
+# --------------------------------------------------------------------------- #
+# the quantized-weight path: qwen2.5-14b with int8 / fp8 weights
+# --------------------------------------------------------------------------- #
+def phase_kernels_quant(torch, flush) -> dict:
+    """quant_matmul against quant_matmul_ref at qwen's MLP and LM-head
+    shapes (decode T = 4, a 128-token chunk, the LM head of one token, a
+    1316-token whole prompt), the quantization grid's ragged shapes (also
+    inside QMM_ENVELOPE of the fp32 product) and two shapes with a split
+    contraction; x fp32 and bf16, int8 and fp8 codes, every launch pair
+    torch.equal.  Times at the serving shapes; the library yardstick is
+    torch.matmul on the dense weight in x's dtype (what the codes replace,
+    not the same function).  Returns the main-path case (T = 4, bf16, int8,
+    5120 x 13824)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant import quantize_per_channel
+    from repro_torch.kernels.quant_matmul import quant_matmul, splits
+    from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
+
+    cfg = get_config(ARCH)
+    d, f, v = cfg.d_model, cfg.d_ff, -(-cfg.vocab_size // 128) * 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    report = {}
+    # (label, T, D, F, timed)
+    cases = [("decode w_in", 4, d, f, True), ("decode w_out", 4, f, d, True),
+             ("decode LM head", 4, d, v, True), ("chunk w_in", 128, d, f, True),
+             ("chunk w_out", 128, f, d, True), ("chunk LM head", 1, d, v, True),
+             ("whole prompt w_in", 1316, d, f, True), ("whole prompt w_out", 1316, f, d, True)]
+    cases += [("grid", t, dd, ff, False) for t, dd, ff in QMM_GRID]
+    cases += [("split", t, dd, ff, False) for t, dd, ff in QMM_SPLIT]
+    for label, t, din, dout, timed in cases:
+        # the scaled init's spread, but N(0, 1) at the grid's shapes, as the
+        # grid that set the envelope draws them
+        w = torch.randn((din, dout), generator=gen, device="cuda")
+        if label != "grid":
+            w /= din ** 0.5
+        for fmt in ("int8", "fp8"):
+            qw, scale = quantize_per_channel(w, axis=-2, fmt=fmt)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).removeprefix("torch.")
+                es = torch.empty((), dtype=dtype).element_size()
+                x = torch.randn((t, din), generator=gen, device="cuda").to(dtype)
+                full = f"{label} [{t}, {din}] x [{din}, {dout}] {fmt}"
+                got = quant_matmul(x, qw, scale)
+                err = _check("kernels", f"quant_matmul {full}", got, quant_matmul_ref(x, qw, scale),
+                             dn)
+                again = quant_matmul(x, qw, scale)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all() or not torch.equal(got, again):
+                    fail("kernels", f"quant_matmul {full} {dn}: non-finite, or two launches differ")
+                if label == "grid":
+                    dense = x.float() @ w
+                    env = (got.float() - dense).abs().max().item()
+                    print(f"[kernels] quant_matmul {full} {dn}: {env:.4f} from the fp32 product "
+                          f"(envelope {QMM_ENVELOPE[fmt]})")
+                    if env > QMM_ENVELOPE[fmt]:
+                        fail("kernels", f"quant_matmul {full} {dn}: outside QMM_ENVELOPE")
+                if not timed:
+                    print(f"[kernels] quant_matmul {full:<48} {dn:<8} max_abs_err {err:.3g} "
+                          f"splits {splits(t, din, dout)}, two launches equal")
+                    continue
+                dense_w = (qw.float() * scale).to(dtype)
+                nbytes = t * din * es + din * dout + dout * 4 + t * dout * es
+                _record(report, "quant_matmul", full + f" splits {splits(t, din, dout)[0]}", dn,
+                        err, time_ms(torch, lambda: quant_matmul(x, qw, scale), flush),
+                        time_ms(torch, lambda: quant_matmul_ref(x, qw, scale), flush),
+                        time_ms(torch, lambda: torch.matmul(x, dense_w), flush),
+                        bound_ms(nbytes, 2 * t * din * dout,
+                                 PEAK_BF16_TC if dn == "bfloat16" else PEAK_FP32),
+                        dn == "bfloat16" and fmt == "int8" and label == "decode w_in")
+                del dense_w
+            del qw, scale
+        print(f"[kernels] quant_matmul {label} [{din}, {dout}]: every case inside TOLS, "
+              "bit-identical over two launches")
+        del w
+    return report
+
+
+def _quantized_tree(torch, cfg, fmt: str) -> dict:
+    """The seeded weights of `cfg` (the draws `Model.init` makes with the
+    serve phase's seed, so run A's weights for qwen) drawn on the card one
+    leaf at a time and quantized there by the port's `quantize_tree`, each
+    leaf's full-precision draw freed once it is quantized: the peak is the
+    codes plus one leaf, not the full-precision tree plus the codes."""
+    from repro_torch.checkpoint.manifest import quantize_tree
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import leaf_items, torch_dtype
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tree = {}
+    for path, spec in leaf_items(Model(cfg, {}, device="meta").schema()):
+        *parents, name = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = quantize_tree({path: spec.materialize(gen, torch_dtype(cfg.dtype))},
+                                   fmt)[path]
+    return tree
+
+
+def phase_model_quant(torch) -> None:
+    """qwen2.5-14b at full width, 2 layers, fp32, weights in storage form
+    (int8, then fp8): the CUDA binding's logits against the plain binding's
+    for prefill, prefill_into with a partial last chunk and decode with a
+    parked slot, and the whole-prompt prefill against the chunked one."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch.bundle import make_bundle
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype="float32")
+    runtime = Runtime()
+    cuda = runtime.deploy(make_bundle(ARCH), device="cuda")
+    runtime.cleanup()
+    plain = runtime.deploy(make_bundle(ARCH), device="cuda", native_ops=False)
+    runtime.cleanup()
+    for fmt in ("int8", "fp8"):
+        state = params_from_jax(_quantized_tree(torch, cfg, fmt), cfg)
+        m_cuda = Model(cfg, cuda.binding, device="cuda").load_params(state)
+        m_plain = Model(cfg, plain.binding, device="cuda").load_params(state)
+        rng = np.random.default_rng(SEED)
+
+        def compare(label, a, b):
+            rel = _rel(a, b)
+            print(f"[quant-model] {fmt} {label:<40} logits {tuple(a.shape)} "
+                  f"max|cuda-plain|/max|plain| {rel:.3g} (limit {MODEL_RTOL})")
+            if not bool(torch.isfinite(a).all()) or rel > MODEL_RTOL:
+                fail("quant-model", f"{fmt} {label}: relative error {rel:.3g} (or non-finite)")
+
+        tokens = rng.integers(0, cfg.vocab_size, (2, 300))
+        compare("prefill B=2 S=300", m_cuda.prefill({"tokens": tokens})[0],
+                m_plain.prefill({"tokens": tokens})[0])
+        slots, max_len, chunk, slot = 3, 512, 128, 1
+        prompt = rng.integers(0, cfg.vocab_size, 300)
+        caches = {m: m.init_cache(slots, max_len) for m in (m_cuda, m_plain)}
+        for start in range(0, len(prompt), chunk):
+            n = min(chunk, len(prompt) - start)
+            buf = np.zeros((1, chunk), np.int64)
+            buf[0, :n] = prompt[start:start + n]
+            out = {m: m.prefill_into(buf, caches[m], slot, start, n)[0] for m in caches}
+        compare(f"prefill_into slot {slot}, 300 = 128+128+44", out[m_cuda], out[m_plain])
+        whole = m_cuda.prefill({"tokens": prompt[None]})[0]
+        rel = _rel(whole, out[m_cuda])
+        print(f"[quant-model] {fmt} cuda binding: whole-prompt prefill vs prefill_into, max rel "
+              f"diff {rel:.3g} (limit {MODEL_RTOL})")
+        if rel > MODEL_RTOL:
+            fail("quant-model", f"{fmt}: chunked prefill disagrees with whole-prompt prefill")
+        token = rng.integers(0, cfg.vocab_size, (slots, 1))
+        pos = np.array([5, len(prompt), max_len - 1], np.int32)
+        out = {m: m.decode(token, caches[m], pos)[0] for m in caches}
+        compare("decode pos [5, 300, 511 parked]", out[m_cuda], out[m_plain])
+        del state, m_cuda, m_plain, caches, out, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_serve_quant(torch, contiguous: dict) -> dict:
+    """Full qwen2.5-14b (48 layers, bf16) with its matmul weights in storage
+    form, drawn from run A's seed and quantized on the card: run Q8 (int8,
+    contiguous) with one whole-prompt Model.prefill, run Q8P (int8, paged
+    on 25 pages; its tokens must equal Q8's) and run QF8 (fp8, contiguous).
+    Every step launches quant_matmul exactly 3 x 48 + 1 times."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import _build
+    from repro_torch.launch.bundle import make_bundle
+
+    cfg = get_config(ARCH)
+    n = cfg.num_layers
+    print(f"[quant-serve] device memory allocated before the quantized runs: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    runtime = Runtime()
+    container = runtime.deploy(make_bundle(ARCH), device="cuda")
+    for r in container.binding.reports:
+        if not (r.swapped and r.bound == "cuda"):
+            fail("quant-serve", f"op {r.op} is not bound to its CUDA kernel: {r.reason}")
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = _quantized_tree(torch, cfg, "int8")
+    torch.cuda.synchronize()
+    print(f"[quant-serve] int8 tree drawn and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s, peak memory {torch.cuda.max_memory_allocated()} bytes")
+    q8 = _drive(torch, np, cfg, container, "Q8 int8, contiguous", params=tree)
+    eng = q8.pop("server").engine
+    first = q8["reqs"][0]
+    _build.LAUNCHES.clear()
+    whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
+    torch.cuda.synchronize()
+    whole_launches = dict(_build.LAUNCHES)
+    whole_np = whole.cpu().numpy()
+    print(f"[quant-serve] Model.prefill of request 0 ({first.prompt_len} tokens): logits "
+          f"{whole_np.shape} finite={bool(np.isfinite(whole_np).all())}; argmax equals run Q8's "
+          f"first token {int(np.argmax(whole_np)) == first.tokens[0]} (bf16, informational); "
+          f"launches {whole_launches}")
+    if not np.isfinite(whole_np).all() or whole_np.shape != (cfg.vocab_size,):
+        fail("quant-serve", "Model.prefill logits not finite or misshapen")
+    if whole_launches != {"attention": n, "rmsnorm": 2 * n + 1,
+                          "quant_matmul": _qmm_per_step(n)}:
+        fail("quant-serve", f"whole-prompt prefill launched {whole_launches}")
+    runs["prefill"] = whole_launches
+    del eng, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8p = _drive(torch, np, cfg, container, "Q8P int8, paged, 25 pages", params=tree,
+                 paged=True, num_pages=25)
+    q8p.pop("server")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_a = sum(a[0] == b[0] for a, b in zip(q8["tokens"], contiguous["tokens"]))
+    print(f"[quant-serve] Q8P: pages-allocated-peak {int(q8p['stats']['pages-allocated-peak'])} "
+          f"(limit 24); tokens equal to Q8's: {q8p['tokens'] == q8['tokens']}; Q8's first "
+          f"tokens equal to run A's (the same weights in bf16): {first_a} of 8 (informational)")
+    if q8p["stats"]["pages-allocated-peak"] > 24:
+        fail("quant-serve", "Q8P allocated more than its 24 pages")
+    if q8p["tokens"] != q8["tokens"]:
+        fail("quant-serve", "Q8P (paged) tokens differ from Q8's (contiguous)")
+    tree = _quantized_tree(torch, cfg, "fp8")
+    qf8 = _drive(torch, np, cfg, container, "QF8 fp8, contiguous", params=tree)
+    qf8.pop("server")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(Q8=q8, Q8P=q8p, QF8=qf8)
+    runtime.cleanup()
+    return runs
 
 
 # --------------------------------------------------------------------------- #
@@ -1041,13 +1314,18 @@ def main() -> int:
     cases = phase_kernels(torch, flush)
     cases.update(phase_kernel_forms(torch, flush))
     cases.update(phase_kernels_moe(torch, flush))
+    cases.update(phase_kernels_quant(torch, flush))
     del flush
     phase_model(torch)
     torch.cuda.empty_cache()
+    phase_model_quant(torch)
     serve = phase_serve(torch)
     gc.collect()
     torch.cuda.empty_cache()
     modes = phase_serve_modes(torch, serve["A"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = phase_serve_quant(torch, serve["A"])
     gc.collect()
     torch.cuda.empty_cache()
     phase_model_moe(torch)
@@ -1068,10 +1346,11 @@ def main() -> int:
                     "windowed_attention"))
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
-                ("moe_gmm", moe["M"], "moe_gmm")]
+                ("moe_gmm", moe["M"], "moe_gmm"),
+                ("quant_matmul", quant["Q8"], "quant_matmul")]
     kernels = []
     for key, run, op in entries:
-        kernel = op if op in ("rmsnorm", "moe_gmm") else "flash_attention"
+        kernel = op if op in ("rmsnorm", "moe_gmm", "quant_matmul") else "flash_attention"
         source, replaces = SOURCES[kernel]
         kernels.append({"name": kernel if kernel == op else f"{kernel}/{key}",
                         "route": "cuda", "source": source, "replaces": replaces,

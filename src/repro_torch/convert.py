@@ -2,9 +2,13 @@
 
 `params_from_jax` takes the JAX parameter tree as numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives: ``decoder/p0/*`` stacked over
-the blocks) and returns the port's state dict (``layers.{i}.*``) with the
-block axis unstacked and every leaf name kept.  Shapes are checked against
-the port's schema, which is the JAX package's.
+the blocks) or as torch tensors (already on the model's device, say) and
+returns the port's state dict (``layers.{i}.*``) with the block axis
+unstacked and every leaf name kept.  A leaf may be in storage form,
+``{"q", "scale"}`` (what ``quantize_tree`` or a ``dequantize=False``
+restore gives): its codes have the leaf's shape and its scales the leaf's
+shape without axis -2.  Shapes are checked against the port's schema,
+which is the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,13 +22,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, flatten_params, tree_items
 from repro_torch.models.schema import leaf_items
 
-__all__ = ["params_from_jax"]
+__all__ = ["RAW_BITS", "params_from_jax"]
+
+# dtypes numpy has only through ml_dtypes (the JAX package's arrays, the
+# checkpoint's dtype strings): torch reads them as raw bits of that width
+RAW_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def _to_torch(arr: Any) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
     a = np.asarray(arr)
-    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: reinterpret the bits
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name in RAW_BITS:
+        bits, dtype = RAW_BITS[a.dtype.name]
+        return torch.from_numpy(a.view(bits).copy()).view(dtype)
     return torch.from_numpy(a.copy())
 
 
@@ -42,10 +54,17 @@ def _nest(flat: Mapping[str, torch.Tensor]) -> dict:
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
     specs = dict(leaf_items(Model(cfg, binding={}, device="meta").schema()))
     flat = dict(tree_items(np_tree))
-    if set(flat) != set(specs):
-        raise KeyError(f"parameter tree mismatch: missing {sorted(set(specs) - set(flat))[:4]}, "
-                       f"unexpected {sorted(set(flat) - set(specs))[:4]}")
+    want: dict[str, tuple[int, ...]] = {}
     for path, spec in specs.items():
-        if tuple(np.shape(flat[path])) != spec.shape:
-            raise ValueError(f"{path}: shape {np.shape(flat[path])}, expected {spec.shape}")
+        if f"{path}/q" in flat and f"{path}/scale" in flat:
+            want[f"{path}/q"] = spec.shape
+            want[f"{path}/scale"] = spec.shape[:-2] + spec.shape[-1:]
+        else:
+            want[path] = spec.shape
+    if set(flat) != set(want):
+        raise KeyError(f"parameter tree mismatch: missing {sorted(set(want) - set(flat))[:4]}, "
+                       f"unexpected {sorted(set(flat) - set(want))[:4]}")
+    for path, shape in want.items():
+        if tuple(np.shape(flat[path])) != shape:
+            raise ValueError(f"{path}: shape {tuple(np.shape(flat[path]))}, expected {shape}")
     return flatten_params(_nest({p: _to_torch(a) for p, a in flat.items()}))

@@ -28,7 +28,7 @@ __all__ = ["LAUNCHES", "library", "check", "check_layout", "dtype_code", "stream
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "binding.cpp", CSRC / "rmsnorm.cu", CSRC / "flash_attention.cu",
-           CSRC / "moe_gmm.cu")
+           CSRC / "moe_gmm.cu", CSRC / "quant_matmul.cu")
 # src/repro_torch/kernels/_build.py -> the repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
@@ -65,6 +65,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_attention.restype = i
     lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.repro_moe_gmm.restype = i
+    lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
+    lib.repro_quant_matmul.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

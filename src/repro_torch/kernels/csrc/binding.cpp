@@ -20,6 +20,10 @@ int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k
 int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
                          void* out, long long t, int d, int f, int e, void* stream);
 
+int repro_quant_matmul_launch(int dtype, int code, const void* x, const void* q,
+                              const float* scale, void* out, float* ws, long long t, int d,
+                              int f, int splits, int kchunk, void* stream);
+
 extern "C" {
 
 int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long rows, int d,
@@ -45,8 +49,16 @@ int repro_moe_gmm(int dtype, const void* x, const void* w, const void* group_siz
                               e, stream);
 }
 
+// ws may be null when splits == 1.
+int repro_quant_matmul(int dtype, int code, const void* x, const void* q, const void* scale,
+                       void* out, void* ws, long long t, int d, int f, int splits, int kchunk,
+                       void* stream) {
+  return repro_quant_matmul_launch(dtype, code, x, q, static_cast<const float*>(scale), out,
+                                   static_cast<float*>(ws), t, d, f, splits, kchunk, stream);
+}
+
 const char* repro_error_string(int code) {
-  if (code < 0) return "unsupported dtype or head_dim";
+  if (code < 0) return "unsupported dtype, head_dim, code format or split";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

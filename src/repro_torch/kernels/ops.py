@@ -8,16 +8,17 @@ what this port implements:
   * a plain PyTorch reference (provider ``torch-ref``) for ``rmsnorm``,
     ``attention``, ``windowed_attention``, ``chunk_attention`` and
     ``decode_attention`` (the last two in their contiguous and paged, full
-    and windowed forms), and ``moe_gmm`` (`moe_gmm_ref`: dropless at
+    and windowed forms), ``moe_gmm`` (`moe_gmm_ref`: dropless at
     <= 1024 rows, the capacity-truncated baseline above, as in the JAX
-    package);
-  * the hand-written CUDA kernels (provider ``cuda``) for the same six,
+    package) and ``quant_matmul`` (int8 or fp8 weight codes with
+    per-output-channel scales);
+  * the hand-written CUDA kernels (provider ``cuda``) for the same seven,
     behind the ``cuda_kernels`` platform feature (``moe_gmm``'s is
     dropless at any row count).  Binding one builds the kernel library.
 
-``ssd_scan`` and ``quant_matmul`` are declared but not ported yet: a
-deployment lists them as unported.  The quantized-KV form of decode and
-chunk attention (``k_scale``/``v_scale``) raises NotImplementedError.
+``ssd_scan`` is declared but not ported yet: a deployment lists it as
+unported.  The quantized-KV form of decode and chunk attention
+(``k_scale``/``v_scale``) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from repro_torch.kernels.flash_attention_ref import (
 )
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.moe_gmm_ref import moe_gmm_ref
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm_ref import rmsnorm_ref
 
@@ -185,6 +188,7 @@ _REFS = {
     "decode_attention": decode_attention_ref,
     "chunk_attention": chunk_attention_ref,
     "moe_gmm": moe_gmm_ref,
+    "quant_matmul": quant_matmul_ref,
 }
 
 _NATIVES = {
@@ -194,6 +198,7 @@ _NATIVES = {
     "decode_attention": _cuda_decode_attention,
     "chunk_attention": _cuda_chunk_attention,
     "moe_gmm": moe_gmm,
+    "quant_matmul": quant_matmul,
 }
 
 PORTED_OPS: tuple[str, ...] = tuple(sorted(_REFS))

@@ -13,8 +13,12 @@ contiguous or paged, with optional sliding windows.  Its parts:
     tick, `Model.decode`), over a contiguous cache or, with ``paged=True``,
     page pools addressed through a `PagedPool`'s block tables, and with
     ``window=W`` sliding-window attention; ``export_slot``/``import_slot``
-    move one slot's pages (the fleet's KV handoff).  Quantized serving is
-    not ported yet and raises NotImplementedError.
+    move one slot's pages (the fleet's KV handoff).  A weight tree in
+    storage form (int8 or fp8 codes with per-channel scales, from
+    ``quantize_tree`` or a ``dequantize=False`` checkpoint restore) serves
+    through ``params`` over the full-precision cache; ``quantize=``, which
+    in the JAX engine also quantizes the KV cache, raises
+    NotImplementedError.
   * `Server` and `main` — the JAX package's facade and CLI, plus
     ``--device``.
 
@@ -232,8 +236,9 @@ class TorchEngine:
     ``window=W`` every attention call is sliding-window; the scheduler
     parks and recycles out-of-window pages.
 
-    Weights come from ``params`` — the JAX parameter tree as numpy arrays,
-    converted by `params_from_jax` — or are drawn from a
+    Weights come from ``params`` — the JAX parameter tree as numpy arrays
+    or torch tensors, full precision or with leaves in storage form
+    (``{"q", "scale"}``), converted by `params_from_jax` — or are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the device.  ``device`` must
     be the container's: the engine never moves to another one.
     """
@@ -253,7 +258,10 @@ class TorchEngine:
         if window is not None and window < 1:
             raise ValueError(f"sliding window of {window} tokens")
         if quantize not in (None, "none"):
-            raise NotImplementedError("quantized serving is not ported yet")
+            raise NotImplementedError(
+                f"quantize={quantize!r} quantizes the weights and the KV cache, and the "
+                "quantized KV cache is not ported yet; serve a quantized weight tree "
+                "through params= instead")
         dev = torch.device(device)
         if dev.type != container.device.type or dev.index not in (None, container.device.index):
             raise ValueError(f"engine device {dev} is not the container's {container.device}")
@@ -279,7 +287,8 @@ class TorchEngine:
         self.decode_calls = 0
 
     def load_params(self, np_tree: Mapping) -> None:
-        """Serve the weights of a JAX parameter tree (numpy leaves)."""
+        """Serve the weights of a JAX parameter tree (numpy or torch
+        leaves; storage-form leaves bind the quantized paths)."""
         self.model.load_params(params_from_jax(np_tree, self.cfg))
 
     # -- prefill ----------------------------------------------------------

@@ -1,11 +1,16 @@
 """Transformer layers of the dense text decoder, in PyTorch.
 
-A port of `repro/models/layers.py` for the full-precision serving path,
-over a contiguous KV cache or a paged one, with an optional sliding
-window.  Every hardware-sensitive op goes through the container's
-binding (``binding["rmsnorm"]``, ``binding["attention"]``, ...); the plain
-large products (projections, MLP) stay matrix products, as the JAX
-package left them to XLA.
+A port of `repro/models/layers.py` for the serving path, over a
+contiguous KV cache or a paged one, with an optional sliding window.
+Every hardware-sensitive op goes through the container's binding
+(``binding["rmsnorm"]``, ``binding["attention"]``, ...); the plain large
+products (projections, full-precision MLP) stay matrix products, as the
+JAX package left them to XLA.
+
+A weight leaf may be in storage form, ``{"q", "scale"}`` (int8 or fp8
+codes, float32 scales with axis -2 reduced away): the MLP sends such
+leaves to ``binding["quant_matmul"]``, and the attention projections
+dequantize them first (`dequant_param`), exactly where the JAX layers do.
 
 Tensor layouts are the JAX package's: ``wq (d, h, dh)``, ``wk/wv
 (d, kv, dh)``, ``wo (h, dh, d)``, activations ``(B, S, H, Dh)``, so
@@ -22,11 +27,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quant import dequantize
 from repro_torch.models.schema import LeafSpec
 
 __all__ = ["rotary", "norm_schema", "norm_apply", "attention_schema", "attention_apply",
-           "attention_decode", "attention_chunk", "mlp_schema", "mlp_apply",
-           "paged_write_index"]
+           "attention_decode", "attention_chunk", "dequant_param", "is_quantized",
+           "mlp_schema", "mlp_apply", "paged_write_index"]
+
+
+def is_quantized(p) -> bool:
+    """Whether a weight leaf is in storage form: a ``{"q", "scale"}``
+    mapping (or the model's subtree of the two)."""
+    return not isinstance(p, torch.Tensor) and "q" in p and "scale" in p
+
+
+def dequant_param(p, dtype: torch.dtype = torch.float32):
+    """Materialize a storage-form weight ``{"q", "scale"}`` (codes with
+    axis -2 reduced to per-channel scales) as a dense tensor of `dtype`;
+    full-precision leaves pass through untouched."""
+    if is_quantized(p):
+        return dequantize(p["q"], p["scale"], axis=-2, dtype=dtype)
+    return p
 
 
 # --------------------------------------------------------------------------- #
@@ -78,15 +99,17 @@ def attention_schema(cfg: ModelConfig, n_heads: int | None = None) -> dict[str, 
     return leaves
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
     """(B, S, d) @ (d, heads, dh) -> (B, S, heads, dh), contiguous."""
     b, s, d = x.shape
+    w = dequant_param(w, x.dtype)
     return (x.reshape(b * s, d) @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
 
-def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out(o: torch.Tensor, wo) -> torch.Tensor:
     """(B, S, H, Dh) @ (H, Dh, d) -> (B, S, d)."""
     b, s, h, dh = o.shape
+    wo = dequant_param(wo, o.dtype)
     return (o.reshape(b * s, h * dh) @ wo.reshape(h * dh, -1)).view(b, s, -1)
 
 
@@ -223,7 +246,22 @@ def mlp_schema(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, LeafSpec]
     }
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-GLU MLP; its width is the leaves'."""
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
-    return h @ params["w_out"]
+def mlp_apply(params, x: torch.Tensor, binding=None) -> torch.Tensor:
+    """SiLU-GLU MLP; its width is the leaves'.  A storage-form leaf goes
+    through ``binding["quant_matmul"]`` on the (B*S, D) rows, which scales
+    the product per output channel, so the dense weight is never
+    materialized (a binding is then required); a full-precision leaf stays
+    a matrix product."""
+
+    def matmul(y, w):
+        if is_quantized(w):
+            if binding is None:
+                raise ValueError("mlp_apply: a quantized weight needs a binding with "
+                                 "quant_matmul")
+            b, s, d = y.shape
+            return binding["quant_matmul"](y.reshape(b * s, d), w["q"],
+                                           w["scale"]).view(b, s, -1)
+        return y @ w
+
+    h = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_in"])
+    return matmul(h, params["w_out"])

@@ -25,10 +25,16 @@ its post-norm, its grouped matmuls through ``binding["moe_gmm"]``.
 Parameters are created on the meta device and bound by `load_params`
 (weights from elsewhere, e.g. `repro_torch.convert.params_from_jax`) or
 `init` (drawn from a seeded `torch.Generator` on the model's device).
+The model takes its structure from the state it is given, as the JAX
+model takes it from its parameter tree: a ``<leaf>.q`` / ``<leaf>.scale``
+pair binds that leaf in storage form (int8 or fp8 codes, float32 scales
+with axis -2 reduced away; what `checkpoint.manifest.quantize_tree` or a
+quantized checkpoint gives).  The MLP and the LM head then run
+``binding["quant_matmul"]``; the attention projections dequantize their
+leaves, and the embedding dequantizes only the rows it gathers.
 
-SSM, encoder-decoder, vision, tied-embedding, interleaved-MoE and
-quantized paths are not ported: such configurations raise
-NotImplementedError.
+SSM, encoder-decoder, vision, tied-embedding and interleaved-MoE
+configurations are not ported: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,22 +63,63 @@ def _stack(tree: Tree, n: int) -> Tree:
     )
 
 
+_CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def _meta(shape, dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"), requires_grad=False)
+
+
 class _Leaves(nn.Module):
     """One parameter subtree: leaves by name, read as ``leaves["wq"]``; a
-    nested subtree (the MoE's ``shared`` MLP) is a child `_Leaves`."""
+    nested subtree (the MoE's ``shared`` MLP) is a child `_Leaves`, and so
+    is a leaf in storage form (``leaves["w_in"]["q"]``, ``["scale"]``)."""
 
     def __init__(self, specs: Mapping[str, Any], dtype: torch.dtype):
         super().__init__()
+        self._specs, self._dtype = dict(specs), dtype
         for name, spec in specs.items():
             if isinstance(spec, Mapping):
                 self.add_module(name, _Leaves(spec, dtype))
-                continue
-            t = torch.empty(spec.shape, dtype=torch_dtype(spec.dtype) if spec.dtype else dtype,
-                            device="meta")
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            else:
+                self._place(name, spec)
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def _place(self, name: str, spec: LeafSpec, codes: torch.dtype | None = None) -> None:
+        """A meta placeholder for leaf `name`: the spec's shape and dtype,
+        or, with a `codes` dtype, the storage-form pair (codes of the
+        spec's shape, float32 scales with axis -2 removed)."""
+        if name in self:
+            delattr(self, name)
+        if codes is None:
+            self.register_parameter(
+                name, _meta(spec.shape, torch_dtype(spec.dtype) if spec.dtype else self._dtype))
+            return
+        if codes not in _CODE_DTYPES or len(spec.shape) < 2:
+            raise TypeError(f"{name}: codes of dtype {codes} for a leaf of shape {spec.shape} "
+                            "(int8 or float8_e4m3fn, at least 2-d)")
+        pair = _Leaves({}, self._dtype)
+        pair.register_parameter("q", _meta(spec.shape, codes))
+        pair.register_parameter("scale", _meta(spec.shape[:-2] + spec.shape[-1:],
+                                               torch.float32))
+        self.add_module(name, pair)
+
+    def bind_structure(self, prefix: str, state: Mapping[str, torch.Tensor]) -> None:
+        """Re-place every leaf as `state` holds it: in storage form where it
+        has ``<prefix>.<leaf>.q`` and ``.scale``, else full precision."""
+        for name, spec in self._specs.items():
+            path = f"{prefix}.{name}"
+            if isinstance(spec, Mapping):
+                self._modules[name].bind_structure(path, state)
+                continue
+            q = state.get(path + ".q")
+            self._place(name, spec, q.dtype if q is not None and path + ".scale" in state
+                        else None)
 
 
 class _Block(nn.Module):
@@ -85,7 +132,9 @@ class _Block(nn.Module):
 def flatten_params(tree: Tree) -> dict[str, torch.Tensor]:
     """JAX-layout parameter tree (``decoder/p0/*`` stacked over blocks) ->
     the port's state dict (``layers.{i}.*``), unstacking the block axis.
-    The per-layer tensors are views of the stacked ones."""
+    The per-layer tensors are views of the stacked ones.  A storage-form
+    leaf ``{"q", "scale"}`` becomes ``<leaf>.q`` and ``<leaf>.scale``
+    (its scales are stacked too: axis -2 never is the block axis)."""
     state: dict[str, torch.Tensor] = {}
     for path, leaf in tree_items(tree):
         parts = path.split("/")
@@ -170,7 +219,15 @@ class Model(nn.Module):
 
     def load_params(self, state: Mapping[str, torch.Tensor]) -> "Model":
         """Bind a full state dict (``layers.{i}.attn.wq``, ...): each tensor
-        is moved to the model's device and dtype, shapes must match."""
+        is moved to the model's device and dtype (codes keep theirs, scales
+        are float32), shapes must match.  A leaf given as ``<leaf>.q`` and
+        ``<leaf>.scale`` is bound in storage form."""
+        groups = [("embed", self.embed), ("final_norm", self.final_norm),
+                  ("lm_head", self.lm_head)]
+        groups += [(f"layers.{i}.{name}", leaves) for i, blk in enumerate(self.layers)
+                   for name, leaves in blk.named_children()]
+        for prefix, leaves in groups:
+            leaves.bind_structure(prefix, state)
         own = dict(self.named_parameters())
         missing, extra = set(own) - set(state), set(state) - set(own)
         if missing or extra:
@@ -270,15 +327,27 @@ class Model(nn.Module):
         h = L.norm_apply(blk.post_norm, x, cfg, binding)
         if hasattr(blk, "moe"):
             return x + moe_apply(blk.moe, h, cfg, binding), kv
-        return x + L.mlp_apply(blk.mlp, h), kv
+        return x + L.mlp_apply(blk.mlp, h, binding), kv
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return self.embed["tok"][tokens]
+        tok = self.embed["tok"]
+        if L.is_quantized(tok):
+            # the scales are per d-column (axis -2, the vocab, is reduced
+            # away), so dequantizing the gathered rows gives the bits the
+            # JAX model's dequantize-the-table-then-gather gives
+            return L.dequant_param({"q": tok["q"][tokens], "scale": tok["scale"]}, self.dtype)
+        return tok[tokens]
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(self.final_norm, x, self.cfg, self.binding)
-        logits = (x @ self.lm_head["w"]).float()
+        w = self.lm_head["w"]
+        if L.is_quantized(w):
+            b, s, d = x.shape
+            logits = self.binding["quant_matmul"](x.reshape(b * s, d), w["q"],
+                                                  w["scale"]).view(b, s, -1).float()
+        else:
+            logits = (x @ w).float()
         if self.padded_vocab != self.cfg.vocab_size:
             mask = torch.arange(self.padded_vocab, device=x.device) < self.cfg.vocab_size
             logits = torch.where(mask, logits, -1e9)

@@ -101,5 +101,5 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, binding) -> torch.Tenso
     y = _gmm_pairs(x_flat, top_p, top_i, params["w_in"], params["w_gate"],
                    params["w_out"], cfg, binding)
     if cfg.n_shared_experts:
-        y = y + mlp_apply(params["shared"], x).reshape(b * s, d).to(y.dtype)
+        y = y + mlp_apply(params["shared"], x, binding).reshape(b * s, d).to(y.dtype)
     return y.reshape(b, s, d).to(x.dtype)

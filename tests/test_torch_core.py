@@ -52,7 +52,7 @@ def test_abi_strings_equal_across_packages(op):
 def test_port_declares_every_jax_op():
     assert set(OP_NAMES) == set(JAX_ABIS)
     assert set(PORTED_OPS) == {"rmsnorm", "attention", "windowed_attention", "chunk_attention",
-                               "decode_attention", "moe_gmm"}
+                               "decode_attention", "moe_gmm", "quant_matmul"}
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
