@@ -37,12 +37,14 @@ Phases, each one printed line per case, each raising on failure:
                weight codes and per-channel fp32 scales (its kernel cases
                run with phase 3): quant_matmul against quant_matmul_ref at
                the MLP and LM-head shapes (T = 4 decode, 128 a chunk, 1 the
-               chunk's LM head, 1316 a whole prompt), the quantization
-               grid's ragged shapes (also inside QMM_ENVELOPE of the fp32
-               product) and two split contractions, fp32 and bf16 x, each
-               launch pair torch.equal; then 2 layers fp32 in storage form,
-               CUDA binding against plain for prefill, prefill_into and
-               decode, and whole-prompt against chunked prefill; then full
+               chunk's LM head, 1316 a whole prompt, 600 the model phase's
+               prefill), the quantization grid's ragged shapes (also inside
+               QMM_ENVELOPE of the fp32 product) and three split
+               contractions, fp32 and bf16 x, each launch pair torch.equal;
+               then 2 layers fp32 in storage form, CUDA binding against
+               plain for prefill (with where the two depart, printed),
+               prefill_into and decode, and whole-prompt against chunked
+               prefill; then full
                qwen2.5-14b with its seeded weights quantized on the card
                (15.19 GB of codes and scales): run Q8 int8 contiguous and
                one whole-prompt Model.prefill, run Q8P int8 paged on 25
@@ -108,9 +110,10 @@ MODEL_RTOL = 1e-3   # phase 4: max |cuda - plain| / max |plain| over the logits
 # D = 64 contraction, so held only there
 QMM_ENVELOPE = {"int8": 0.35, "fp8": 1.50}
 QMM_GRID = [(8, 32, 32), (60, 64, 64), (7, 48, 32), (16, 32, 64)]
-# ragged shapes whose contraction the wrapper splits (D = 1000: 16 ranges,
-# the last 40 rows), narrow and row tiles
-QMM_SPLIT = [(5, 1000, 48), (37, 1000, 144)]
+# ragged shapes whose contraction the wrapper splits (D = 1000: 16 steps of
+# 64, the last 40 rows): the narrow tile (T <= 4) and the row tile with 5
+# and with 5 of 32 rows live in the last tile
+QMM_SPLIT = [(3, 1000, 48), (5, 1000, 48), (37, 1000, 144)]
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operation rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12          # float32 outside the tensor cores (TF32 off)
@@ -805,16 +808,18 @@ def phase_serve_modes(torch, contiguous: dict) -> dict:
 def phase_kernels_quant(torch, flush) -> dict:
     """quant_matmul against quant_matmul_ref at qwen's MLP and LM-head
     shapes (decode T = 4, a 128-token chunk, the LM head of one token, a
-    1316-token whole prompt), the quantization grid's ragged shapes (also
-    inside QMM_ENVELOPE of the fp32 product) and two shapes with a split
-    contraction; x fp32 and bf16, int8 and fp8 codes, every launch pair
+    1316-token whole prompt, the model phase's 600-row prefill), the
+    quantization grid's ragged shapes (also inside QMM_ENVELOPE of the fp32
+    product) and three shapes with a split contraction, after the
+    kernels' occupancy as the wrapper reads it; x fp32 and bf16, int8 and
+    fp8 codes, every launch pair
     torch.equal.  Times at the serving shapes; the library yardstick is
     torch.matmul on the dense weight in x's dtype (what the codes replace,
     not the same function).  Returns the main-path case (T = 4, bf16, int8,
     5120 x 13824)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.quant import quantize_per_channel
-    from repro_torch.kernels.quant_matmul import quant_matmul, splits
+    from repro_torch.kernels.quant_matmul import occupancy, plan, quant_matmul
     from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 
     cfg = get_config(ARCH)
@@ -825,9 +830,16 @@ def phase_kernels_quant(torch, flush) -> dict:
     cases = [("decode w_in", 4, d, f, True), ("decode w_out", 4, f, d, True),
              ("decode LM head", 4, d, v, True), ("chunk w_in", 128, d, f, True),
              ("chunk w_out", 128, f, d, True), ("chunk LM head", 1, d, v, True),
-             ("whole prompt w_in", 1316, d, f, True), ("whole prompt w_out", 1316, f, d, True)]
+             ("whole prompt w_in", 1316, d, f, True), ("whole prompt w_out", 1316, f, d, True),
+             # the model phase's prefill B=2 S=300: 18 full row tiles and one of 24 rows
+             ("model prefill w_in", 600, d, f, False), ("model prefill w_out", 600, f, d, False)]
     cases += [("grid", t, dd, ff, False) for t, dd, ff in QMM_GRID]
     cases += [("split", t, dd, ff, False) for t, dd, ff in QMM_SPLIT]
+    for t in (4, 600):
+        for dtype, code in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            rows, resident, sms = occupancy(torch.cuda.current_device(), dtype, code, t)
+            print(f"[kernels] quant_matmul T = {t}, dtype code {dtype}, code format {code}: "
+                  f"{rows}-row tiles, {resident} blocks resident an SM, {sms} SMs")
     for label, t, din, dout, timed in cases:
         # the scaled init's spread, but N(0, 1) at the grid's shapes, as the
         # grid that set the envelope draws them
@@ -857,11 +869,11 @@ def phase_kernels_quant(torch, flush) -> dict:
                         fail("kernels", f"quant_matmul {full} {dn}: outside QMM_ENVELOPE")
                 if not timed:
                     print(f"[kernels] quant_matmul {full:<48} {dn:<8} max_abs_err {err:.3g} "
-                          f"splits {splits(t, din, dout)}, two launches equal")
+                          f"splits {plan(x, qw)}, two launches equal")
                     continue
                 dense_w = (qw.float() * scale).to(dtype)
                 nbytes = t * din * es + din * dout + dout * 4 + t * dout * es
-                _record(report, "quant_matmul", full + f" splits {splits(t, din, dout)[0]}", dn,
+                _record(report, "quant_matmul", full + f" splits {plan(x, qw)[0]}", dn,
                         err, time_ms(torch, lambda: quant_matmul(x, qw, scale), flush),
                         time_ms(torch, lambda: quant_matmul_ref(x, qw, scale), flush),
                         time_ms(torch, lambda: torch.matmul(x, dense_w), flush),
@@ -896,6 +908,61 @@ def _quantized_tree(torch, cfg, fmt: str) -> dict:
         node[name] = quantize_tree({path: spec.materialize(gen, torch_dtype(cfg.dtype))},
                                    fmt)[path]
     return tree
+
+
+def _departure(torch, label: str, m_cuda, m_plain, tokens) -> None:
+    """Where the CUDA binding's whole-prompt prefill departs from the plain
+    binding's; printed, not checked.  After the embedding and each block:
+    the residual streams' largest difference over max |plain|, with its
+    place (row, token, column), and the same at the last tokens, the only
+    ones the logits read; the block's own part (the CUDA block on the plain
+    stream); the attention's reach (the plain attention on the CUDA and on
+    the plain pre-norm output: how far the norm's rounding moves it); and
+    at the worst token, its largest pre-softmax score and the least gap
+    between a head's two best keys.  Then the largest logit difference."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+
+    cfg, pb, cb = m_plain.cfg, m_plain.binding, m_cuda.binding
+    tag = f"[quant-model] {label} departure"
+    with torch.no_grad():
+        xc, xp = m_cuda._embed(tokens), m_plain._embed(tokens)
+        positions = torch.arange(xp.shape[1], device=xp.device)
+        print(f"{tag}: embedding {_rel(xc, xp):.3g}")
+        for i in range(cfg.num_layers):
+            blk = m_plain.layers[i]
+            h_p = L.norm_apply(blk.pre_norm, xp, cfg, pb)
+            h_c = L.norm_apply(blk.pre_norm, xp, cfg, cb)
+            reach = _rel(L.attention_apply(blk.attn, h_c, cfg, pb, positions=positions)[0],
+                         L.attention_apply(blk.attn, h_p, cfg, pb, positions=positions)[0])
+            own = _rel(m_cuda._block(i, xp, "prefill", positions=positions)[0],
+                       m_plain._block(i, xp, "prefill", positions=positions)[0])
+            xc = m_cuda._block(i, xc, "prefill", positions=positions)[0]
+            xp_next = m_plain._block(i, xp, "prefill", positions=positions)[0]
+            diff = (xc - xp_next).abs()
+            b, t, col = (int(v) for v in np.unravel_index(int(diff.argmax()), tuple(diff.shape)))
+            q, k, _ = L._qkv(blk.attn, h_p, cfg, positions)
+            group = cfg.num_heads // cfg.num_kv_heads
+            keys = k[b, :t + 1].repeat_interleave(group, dim=1)          # (t+1, H, Dh)
+            scores = torch.einsum("hd,jhd->hj", q[b, t], keys) / cfg.head_dim ** 0.5
+            top2 = scores.topk(min(2, t + 1), dim=-1).values
+            gap = (top2[:, 0] - top2[:, -1]).min().item()
+            print(f"{tag}: block {i}: stream {_rel(xc, xp_next):.3g} at (row {b}, token {t}, "
+                  f"column {col}), last tokens {_rel(xc[:, -1], xp_next[:, -1]):.3g}; the "
+                  f"block's own {own:.3g}; pre-norm {_rel(h_c, h_p):.3g} moves the attention "
+                  f"{reach:.3g}; token {t}: largest score {scores.max().item():.4g}, least "
+                  f"top-two gap {gap:.3g}")
+            xp = xp_next
+        lc = m_cuda._logits(xc[:, -1:].contiguous())[:, 0]
+        lp = m_plain._logits(xp[:, -1:].contiguous())[:, 0]
+        d = (lc - lp).abs()
+        b, col = (int(v) for v in np.unravel_index(int(d.argmax()), tuple(d.shape)))
+        print(f"{tag}: logits {_rel(lc, lp):.3g} at (row {b}, column {col}): plain "
+              f"{lp[b, col].item():.6g}, cuda {lc[b, col].item():.6g}; max |plain| by row "
+              f"{[round(v, 4) for v in lp.abs().amax(-1).tolist()]}; the CUDA final norm and "
+              f"LM head on the plain stream "
+              f"{_rel(m_cuda._logits(xp[:, -1:].contiguous())[:, 0], lp):.3g}")
 
 
 def phase_model_quant(torch) -> None:
@@ -933,6 +1000,7 @@ def phase_model_quant(torch) -> None:
         tokens = rng.integers(0, cfg.vocab_size, (2, 300))
         compare("prefill B=2 S=300", m_cuda.prefill({"tokens": tokens})[0],
                 m_plain.prefill({"tokens": tokens})[0])
+        _departure(torch, f"{fmt} prefill B=2 S=300", m_cuda, m_plain, tokens)
         slots, max_len, chunk, slot = 3, 512, 128, 1
         prompt = rng.integers(0, cfg.vocab_size, 300)
         caches = {m: m.init_cache(slots, max_len) for m in (m_cuda, m_plain)}

@@ -27,10 +27,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.convert import RAW_BITS
-from repro_torch.kernels.quant import FORMATS, dequantize as dequant
+from repro_torch.kernels.quant import FORMATS, RAW_BITS, dequantize as dequant
 from repro_torch.kernels.quant import quantize_per_channel, storage_dtype
-from repro_torch.models.schema import torch_dtype
 
 __all__ = ["latest_step", "quantize_tree", "restore_checkpoint"]
 
@@ -164,7 +162,7 @@ def restore_checkpoint(directory: Path | str, skeleton: Any, *, step: int | None
             values[path] = arrays[path]
         elif dequantize:
             values[path] = dequant(arrays[path], arrays[path + ".scale"], axis=int(qmeta["axis"]),
-                                   dtype=torch_dtype(qmeta["orig_dtype"]))
+                                   dtype=getattr(torch, qmeta["orig_dtype"]))
         else:
             values[path] = {"q": arrays[path], "scale": arrays[path + ".scale"]}
     return _unflatten_into(skeleton, values), step

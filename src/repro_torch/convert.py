@@ -19,15 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quant import RAW_BITS
 from repro_torch.models.model import Model, flatten_params, tree_items
 from repro_torch.models.schema import leaf_items
 
-__all__ = ["RAW_BITS", "params_from_jax"]
-
-# dtypes numpy has only through ml_dtypes (the JAX package's arrays, the
-# checkpoint's dtype strings): torch reads them as raw bits of that width
-RAW_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
-            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+__all__ = ["params_from_jax"]
 
 
 def _to_torch(arr: Any) -> torch.Tensor:

@@ -67,6 +67,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_moe_gmm.restype = i
     lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
     lib.repro_quant_matmul.restype = i
+    ip = ctypes.POINTER(i)
+    lib.repro_quant_matmul_occupancy.argtypes = [i, i, ctypes.c_longlong, ip, ip, ip]
+    lib.repro_quant_matmul_occupancy.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,6 +24,9 @@ int repro_quant_matmul_launch(int dtype, int code, const void* x, const void* q,
                               const float* scale, void* out, float* ws, long long t, int d,
                               int f, int splits, int kchunk, void* stream);
 
+int repro_quant_matmul_occupancy_query(int dtype, int code, long long t, int* rows,
+                                       int* resident, int* sms);
+
 extern "C" {
 
 int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long rows, int d,
@@ -55,6 +58,13 @@ int repro_quant_matmul(int dtype, int code, const void* x, const void* q, const 
                        void* stream) {
   return repro_quant_matmul_launch(dtype, code, x, q, static_cast<const float*>(scale), out,
                                    static_cast<float*>(ws), t, d, f, splits, kchunk, stream);
+}
+
+// For a launch of T rows on the current device: its kernel's row tile, the
+// blocks of that kernel resident on one SM, and the device's SM count.
+int repro_quant_matmul_occupancy(int dtype, int code, long long t, int* rows, int* resident,
+                                 int* sms) {
+  return repro_quant_matmul_occupancy_query(dtype, code, t, rows, resident, sms);
 }
 
 const char* repro_error_string(int code) {

@@ -20,29 +20,28 @@
 // D in BK = 64 steps, the coming steps' codes and x tile loaded into
 // registers while the current step is multiplied.
 //
-//   * rows (T > 8): a 32-row tile; the step's codes (16-byte vectors along
+//   * rows (T > 4): a 32-row tile; the step's codes (16-byte vectors along
 //     F, coalesced) and x tile are staged in shared memory as fp32; warp w
 //     owns rows 4w..4w+3, lane l columns 4l..4l+3 (16 sums a thread), as
-//     moe_gmm.cu; the next step is in flight during the products.  Three
-//     blocks an SM.
-//   * narrow (T <= 8: a decode tick, the LM head of one token): an R-row
-//     tile, R = 4 (T <= 4) or 8; warp w owns k rows 8w..8w+7 of every
-//     step, lane l columns 4l..4l+3, all R rows (4R sums a thread).  Each
-//     code is used by one thread only, so the codes go from device memory
-//     to that thread's registers (a 32-bit word a k row; a warp reads 128
+//     moe_gmm.cu; the next step is in flight during the products.
+//   * narrow (T <= 4: a decode tick of 4 slots, the LM head of one token):
+//     a 4-row tile; warp w owns k rows 8w..8w+7 of every step, lane l
+//     columns 4l..4l+3, all 4 rows (16 sums a thread).  Each code is used
+//     by one thread only, so the codes go from device memory to that
+//     thread's registers (a 32-bit word a k row; a warp reads 128
 //     contiguous bytes) and are converted there, with no shared-memory
 //     staging; only the small x tile goes through shared memory.  Its work
-//     is streaming the codes, so two steps more are in flight (16 KB a
-//     block).  At the end the 8 warps' sums are added in shared memory in
-//     warp order.  Two blocks an SM.
+//     is streaming the codes, so two steps more are in flight.  At the end
+//     the 8 warps' sums are added in shared memory in warp order.
 //
 // Filling the card: a decode tick's w_out (F = 5120) has 40 column tiles
-// for 132 SMs.  The wrapper splits D into `splits` equal ranges
-// (blockIdx.z), as many as one wave of resident blocks holds; each range
-// writes its fp32 partial sums to a workspace, and a second kernel adds
-// the ranges in order and applies the scales.  No atomics: every output
-// is the same fixed-order sum on every launch, so two launches give the
-// same bits.
+// for 132 SMs.  The wrapper splits D into equal ranges (blockIdx.z), as
+// many as one wave of resident blocks holds; repro_quant_matmul_occupancy
+// gives it the row tile, the blocks of that kernel resident on an SM and
+// the card's SM count.  Each range writes its fp32 partial sums to a
+// workspace, and a second kernel adds the ranges in order and applies the
+// scales.  No atomics: every output is the same fixed-order sum on every
+// launch, so two launches give the same bits.
 #include <cuda_fp8.h>
 #include <stdint.h>
 
@@ -55,7 +54,7 @@ constexpr int kBK = 64;        // contraction step
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;      // rows per tile of the row kernel
-constexpr int kNarrow = 8;     // rows per tile of the narrow kernel
+constexpr int kNarrow = 4;     // rows per tile of the narrow kernel
 constexpr int kCodesPerVec = 16;
 
 // code type tags: int8 or e4m3
@@ -374,11 +373,24 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ ws, const float* __r
   out[i] = repro::from_float<T>(sum * scale[i % f]);
 }
 
+// The row tile of the kernel a launch of T rows takes.
+inline int row_tile(long long t) { return t <= kNarrow ? kNarrow : kRows; }
+
+// Blocks of the kernel T rows take that one SM holds at once.
+template <typename T, typename Q>
+int occupancy(long long t, int* resident) {
+  if (row_tile(t) == kNarrow)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        resident, qmm_narrow_kernel<T, Q, kNarrow>, kThreads, 0));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, qmm_rows_kernel<T, Q>, kThreads, 0));
+}
+
 template <typename T, typename Q>
 int launch(const void* x, const void* q, const float* scale, void* out, float* ws,
            long long t, int d, int f, int splits, int kchunk, cudaStream_t stream) {
   if (t == 0 || f == 0) return 0;
-  const int bm = t <= 4 ? 4 : t <= kNarrow ? kNarrow : kRows;
+  const int bm = row_tile(t);
   const long long row_tiles = (t + bm - 1) / bm;
   if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>((f + kBN - 1) / kBN), static_cast<unsigned>(row_tiles),
@@ -386,10 +398,7 @@ int launch(const void* x, const void* q, const float* scale, void* out, float* w
   const T* xt = static_cast<const T*>(x);
   const uint8_t* qb = static_cast<const uint8_t*>(q);
   T* o = static_cast<T*>(out);
-  if (bm == 4)
-    qmm_narrow_kernel<T, Q, 4><<<grid, kThreads, 0, stream>>>(xt, qb, scale, o, ws, t, d, f,
-                                                               kchunk, splits);
-  else if (bm == kNarrow)
+  if (bm == kNarrow)
     qmm_narrow_kernel<T, Q, kNarrow><<<grid, kThreads, 0, stream>>>(xt, qb, scale, o, ws, t, d,
                                                                      f, kchunk, splits);
   else
@@ -403,6 +412,18 @@ int launch(const void* x, const void* q, const float* scale, void* out, float* w
                            stream>>>(ws, scale, o, tf, f, splits);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy_codes(int code, long long t, int* resident) {
+  switch (code) {
+    case 0:
+      return occupancy<T, Int8>(t, resident);
+    case 1:
+      return occupancy<T, E4M3>(t, resident);
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
@@ -439,6 +460,27 @@ int repro_quant_matmul_launch(int dtype, int code, const void* x, const void* q,
     case repro::kBFloat16:
       return launch_codes<__nv_bfloat16>(code, x, q, scale, out, ws, t, d, f, splits, kchunk,
                                          s);
+    default:
+      return -1;
+  }
+}
+
+// For a launch of T rows on the current device: the row tile of the kernel
+// it takes, the blocks of that kernel one SM holds at once (its registers
+// and shared memory against the SM's) and the device's SM count.  Returns
+// a cudaError_t (0 = ok) or -1 for an unsupported dtype or code.
+int repro_quant_matmul_occupancy_query(int dtype, int code, long long t, int* rows,
+                                       int* resident, int* sms) {
+  *rows = row_tile(t);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (dtype) {
+    case repro::kFloat32:
+      return occupancy_codes<float>(code, t, resident);
+    case repro::kBFloat16:
+      return occupancy_codes<__nv_bfloat16>(code, t, resident);
     default:
       return -1;
   }

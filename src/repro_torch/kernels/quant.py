@@ -17,10 +17,11 @@ is rounded to bf16 first.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["EPS", "FORMATS", "FP8_DTYPE", "FP8_MAX", "INT8_MAX", "dequantize", "quantize",
-           "quantize_per_channel", "storage_dtype"]
+__all__ = ["EPS", "FORMATS", "FP8_DTYPE", "FP8_MAX", "INT8_MAX", "RAW_BITS", "dequantize",
+           "quantize", "quantize_per_channel", "storage_dtype"]
 
 INT8_MAX = 127.0
 # max normal of float8_e4m3fn (S.1110.111 = 448)
@@ -31,6 +32,12 @@ EPS = 1e-12
 FORMATS = ("int8", "fp8")
 
 FP8_DTYPE = torch.float8_e4m3fn
+
+# dtypes numpy has only through ml_dtypes (the JAX package's arrays, a
+# checkpoint's dtype strings): read as raw bits of that width, then viewed
+# as the torch dtype
+RAW_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, FP8_DTYPE)}
 
 
 def storage_dtype(fmt: str) -> torch.dtype:

@@ -10,42 +10,65 @@ then a CUDA tensor launches the kernel (or raises) and a CPU tensor takes
 the plain version, `quant_matmul_ref`.  Where the grid would leave the
 card half empty (a decode tick's few rows against a narrow weight), the
 contraction is split into ranges (`splits`) whose partial sums a second
-pass adds in a fixed order: the same bits on every launch.
+pass adds in a fixed order: the same bits on every launch.  The split
+reads the kernel's row tile, its blocks resident on an SM and the card's
+SM count from the library (`occupancy`), which asks the CUDA runtime.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 
-__all__ = ["quant_matmul", "splits"]
+__all__ = ["occupancy", "plan", "quant_matmul", "splits"]
 
 _CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _BN, _BK = 128, 64            # the kernel's column tile and contraction step
-_SMS = 132                    # the H100's streaming multiprocessors
-# the kernel's row tiles (T <= 4, T <= 8, else) and the blocks of each
-# resident on an SM (its __launch_bounds__)
-_RESIDENT = {4: 2, 8: 2, 32: 3}
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def splits(t: int, d: int, f: int) -> tuple[int, int]:
-    """(ranges, rows of D a range) the kernel splits the contraction into:
-    as many equal ranges of whole 64-row steps as one wave of resident
-    blocks holds beside the (row tile x column tile) grid, and one range
-    once the grid alone fills a wave.  A part-filled second wave would
-    double the time of a launch, so the grid never grows past one."""
-    bm = 4 if t <= 4 else 8 if t <= 8 else 32
-    tiles = max(_cdiv(t, bm) * _cdiv(f, _BN), 1)
+def splits(t: int, d: int, f: int, rows: int, resident: int, sms: int) -> tuple[int, int]:
+    """(ranges, rows of D a range) the kernel splits the contraction into,
+    for a kernel of `rows`-row tiles of which `resident` blocks fit on one
+    of the card's `sms` SMs: as many equal ranges of whole 64-row steps as
+    one wave of resident blocks holds beside the (row tile x column tile)
+    grid, and one range once the grid alone fills a wave.  A part-filled
+    second wave would double the time of a launch, so the grid never grows
+    past one."""
+    tiles = max(_cdiv(t, rows) * _cdiv(f, _BN), 1)
     steps = max(_cdiv(d, _BK), 1)
-    want = min(max(_SMS * _RESIDENT[bm] // tiles, 1), steps)
+    want = min(max(sms * max(resident, 1) // tiles, 1), steps)
     per = _cdiv(steps, want)
     return _cdiv(steps, per), per * _BK
+
+
+@functools.lru_cache(maxsize=1024)
+def occupancy(device: int, dtype: int, code: int, t: int) -> tuple[int, int, int]:
+    """(row tile, blocks resident on an SM, SMs) of the kernel a launch of
+    `t` rows on card `device` takes, from the CUDA runtime."""
+    lib = _build.library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.repro_quant_matmul_occupancy(dtype, code, t, *(ctypes.byref(v) for v in vals))
+    _build.check(lib, err, "quant_matmul occupancy")
+    return tuple(v.value for v in vals)
+
+
+def plan(x: torch.Tensor, qw: torch.Tensor) -> tuple[int, int]:
+    """`splits` of a launch of x (T, D) against qw (D, F) on x's card."""
+    t, d = x.shape
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    rows, resident, sms = occupancy(device, _build.dtype_code(x, "quant_matmul"),
+                                    _CODES[qw.dtype], t)
+    return splits(t, d, qw.shape[1], rows, resident, sms)
 
 
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -70,9 +93,9 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torc
     out = torch.empty((t, f), dtype=x.dtype, device=x.device)
     if t == 0 or f == 0:
         return out                                                  # nothing to launch
-    n, kchunk = splits(t, d, f)
-    ws = torch.empty((n, t, f), dtype=torch.float32, device=x.device) if n > 1 else None
     lib = _build.library()
+    n, kchunk = plan(x, qw)
+    ws = torch.empty((n, t, f), dtype=torch.float32, device=x.device) if n > 1 else None
     with torch.cuda.device(x.device):
         err = lib.repro_quant_matmul(dtype, _CODES[qw.dtype], x.data_ptr(), qw.data_ptr(),
                                      scale.data_ptr(), out.data_ptr(),

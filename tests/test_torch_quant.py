@@ -24,7 +24,12 @@
 Inputs are drawn with numpy from a crc32 seed of the case id.
 """
 
+import json
+import os
+import subprocess
+import sys
 import zlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -259,20 +264,29 @@ def test_quant_matmul_off_the_cpu_launches_or_counts_nothing(monkeypatch):
                      torch.empty(64, device="meta"))
 
 
-@pytest.mark.parametrize("t, d, f, want", [
-    (4, 5120, 13824, (2, 2560)),       # decode tick, w_in / w_gate: 108 column tiles
-    (4, 13824, 5120, (6, 2304)),       # decode tick, w_out: 40 column tiles
-    (4, 5120, 152064, (1, 5120)),      # LM head: 1188 column tiles fill the card
-    (128, 5120, 13824, (1, 5120)),     # prefill chunk, w_in: 432 tiles, 3 blocks an SM
-    (128, 13824, 5120, (2, 6912)),     # prefill chunk, w_out: 160 tiles
-    (1316, 5120, 13824, (1, 5120)),    # whole prompt
-    (7, 48, 32, (1, 64)),
-    (5, 0, 16, (1, 64)),
+@pytest.mark.parametrize("t, d, f, rows, resident, sms, want", [
+    # an H100 SXM (132 SMs); the narrow kernel's 4-row tile at two blocks
+    # an SM, the row kernel's 32-row tile at three
+    (4, 5120, 13824, 4, 2, 132, (2, 2560)),     # decode tick, w_in / w_gate: 108 column tiles
+    (4, 13824, 5120, 4, 2, 132, (6, 2304)),     # decode tick, w_out: 40 column tiles
+    (4, 5120, 152064, 4, 2, 132, (1, 5120)),    # LM head: 1188 column tiles fill the card
+    (128, 5120, 13824, 32, 3, 132, (1, 5120)),  # prefill chunk, w_in: 432 tiles
+    (128, 13824, 5120, 32, 3, 132, (2, 6912)),  # prefill chunk, w_out: 160 tiles
+    (1316, 5120, 13824, 32, 3, 132, (1, 5120)),  # whole prompt
+    (4, 13824, 5120, 4, 2, 114, (5, 2816)),     # an H100 PCIe's 114 SMs: fewer ranges
+    (4, 13824, 5120, 4, 3, 132, (9, 1536)),     # more blocks resident: more ranges
+    (7, 48, 32, 32, 3, 132, (1, 64)),
+    (5, 0, 16, 32, 3, 132, (1, 64)),
 ])
-def test_contraction_splits_cover_d_in_whole_steps(t, d, f, want):
-    n, kchunk = splits(t, d, f)
+def test_contraction_splits_cover_d_in_whole_steps(t, d, f, rows, resident, sms, want):
+    n, kchunk = splits(t, d, f, rows, resident, sms)
     assert (n, kchunk) == want
     assert kchunk % 64 == 0 and (n - 1) * kchunk < max(d, 1) <= n * kchunk
+    assert n == 1 or _cdiv(t, rows) * _cdiv(f, 128) * n <= sms * resident   # one wave
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +363,20 @@ def test_checkpoint_reader_verify_catches_a_flipped_byte(tmp_path):
     restore_checkpoint(d, jtree)                    # unverified: reads the damage
     with pytest.raises(IOError, match="checksum"):
         restore_checkpoint(d, jtree, verify=True)
+
+
+def test_checkpoint_reader_loads_no_model_layer():
+    """The reader and the quantizer need numpy, json and the quantization
+    numerics only: importing them loads neither the model nor the weights
+    bridge."""
+    code = ("import json, sys, repro_torch.checkpoint.manifest; "
+            "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(Path(__file__).parents[1] / "src")})
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if m.startswith(("repro_torch.models", "repro_torch.convert"))
+                or m == "repro" or m.startswith("repro.")], loaded
 
 
 # ---------------------------------------------------------------------------
