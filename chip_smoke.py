@@ -9,10 +9,12 @@ Phases, each one printed line per case, each raising on failure:
                name and power limit; anything but sm_90 fails.
   2. build   — builds the CUDA kernels from src/repro_torch/kernels/csrc.
   3. kernels — every CUDA kernel against its plain PyTorch version at the
-               full qwen2.5-14b widths, fp32 (TF32 off) and bf16, within
-               TOLS (atol = rtol), with median times (CUDA events, L2
-               flushed between launches) of the kernel, the plain version
-               and one PyTorch library call computing the same function;
+               full qwen2.5-14b widths (moe_gmm, quant_matmul and ssd_scan
+               at their models' shapes, phases 6-8), fp32 (TF32 off) and
+               bf16, within TOLS (atol = rtol), with median times (CUDA
+               events, L2 flushed between launches) of the kernel, the
+               plain version and one PyTorch library call computing the
+               same function;
                then the flash kernel's paged forms (shuffled tables over
                pools whose park page is poisoned, page 128 and page 16),
                windowed forms (W = 512; W >= kv_len bit-identical to no
@@ -71,6 +73,22 @@ Phases, each one printed line per case, each raising on failure:
                on 25 pages.  MP's tokens must equal M's; every run launches
                exactly steps x 48 x 3 moe_gmm, steps x 48 attention and
                steps x 97 rmsnorm.
+  8. ssm     — the Mamba-2 path, mamba2-780m (its kernel cases run with
+               phase 3): ssd_scan against ssd_scan_ref at H = 48, P = 64,
+               N = 128 — the serve chunk (S = chunk = 128), the same with dt
+               zero past row 37, the whole 1316-token prompt (chunk 4),
+               B = 2 S = 2048 (16 carried chunks), 8 groups — fp32 and
+               bf16, y and state within TOLS, each launch pair torch.equal,
+               and at unit scale both against the recurrence in float64;
+               then 2 layers fp32, CUDA binding against plain for prefill,
+               prefill_into (128 + 128 + 44) and decode with a parked row
+               whose state must stay bit-identical (limit SSM_MODEL_RTOL);
+               then full mamba2-780m (48 layers, bf16, tied embeddings,
+               1.56 GB of seeded weights) serving the same 8 requests: run
+               S contiguous, one whole-prompt Model.prefill, run SP paged
+               on 25 pages (SP's tokens must equal S's); every run launches
+               exactly prefill steps x 48 ssd_scan (none in decode, which
+               is plain code), steps x 49 rmsnorm and no attention.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
@@ -82,6 +100,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -91,6 +110,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen2.5-14b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
+SSM_ARCH = "mamba2-780m"
 GMM_PER_LAYER = 3   # w_gate, w_in, w_out: one moe_gmm launch each
 
 
@@ -105,6 +125,7 @@ POISON = 50.0       # park-page fill, as tests/test_attention_conformance.py
 MAX_LEN = 2048      # the serve phase's slot length: 16 pages of 128
 WINDOW = 512        # the windowed serve runs' and kernel cases' W
 MODEL_RTOL = 1e-3   # phase 4: max |cuda - plain| / max |plain| over the logits
+SSM_MODEL_RTOL = 1e-4   # the SSM model phase's limit, the same measure
 # quant_matmul against the fp32 product of the unquantized weights, at the
 # quantization grid's shapes (tests/test_quant_conformance.py): set for a
 # D = 64 contraction, so held only there
@@ -125,10 +146,10 @@ SOURCES = {
     "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu", "src/repro/kernels/moe_gmm.py:102"),
     "quant_matmul": ("src/repro_torch/kernels/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:45"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:91"),
 }
 STILL_TO_PORT = [
     "src/repro/kernels/flash_attention.py:186 quantized-KV form",
-    "src/repro/kernels/ssd_scan.py:91",
 ]
 
 
@@ -595,7 +616,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     for p in eng.model.parameters():
         key = str(p.dtype).removeprefix("torch.")
         by_dtype[key] = by_dtype.get(key, 0) + p.numel() * p.element_size()
-    quantized = is_quantized(eng.model.lm_head["w"])
+    quantized = hasattr(eng.model, "lm_head") and is_quantized(eng.model.lm_head["w"])
     print(f"[serve] {label}: {cfg.name}, {cfg.num_layers} layers, "
           f"{'storage-form weights given' if quantized else 'seeded init'} in "
           f"{time.perf_counter() - t0:.1f} s, bound weight bytes {sum(by_dtype.values())} "
@@ -618,7 +639,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
         out = decode_step(tokens, pos, active)
         step_s["decode"].append(time.perf_counter() - t)
         # parked rows' logits are garbage by contract: check the live ones
-        if out.shape != (eng.slots, cfg.vocab_size) or not np.isfinite(out[active]).all():
+        if out.shape != (eng.slots, eng.model.padded_vocab) or not np.isfinite(out[active]).all():
             nonfinite.append(("decode", tuple(pos)))
         return out
 
@@ -670,12 +691,16 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     # every launch of the run is one of its steps' ops: a layer's attention
     # per step, 2 norms per layer plus the final one, a MoE layer's three
     # grouped matmuls, and with quantized weights a dense layer's three MLP
-    # matmuls plus the LM head
+    # matmuls plus the LM head; a Mamba-2 layer's one norm and, in a
+    # prefill step only, its scan (decode updates the state in plain code)
     n = cfg.num_layers
-    want = {"chunk_attention": steps[0] * n, "decode_attention": steps[1] * n,
-            "rmsnorm": (steps[0] + steps[1]) * (2 * n + 1),
-            "moe_gmm": (steps[0] + steps[1]) * n * GMM_PER_LAYER if cfg.num_experts else 0,
-            "quant_matmul": (steps[0] + steps[1]) * _qmm_per_step(n) if quantized else 0}
+    if cfg.family == "ssm":
+        want = {"rmsnorm": (steps[0] + steps[1]) * (n + 1), "ssd_scan": steps[0] * n}
+    else:
+        want = {"chunk_attention": steps[0] * n, "decode_attention": steps[1] * n,
+                "rmsnorm": (steps[0] + steps[1]) * (2 * n + 1),
+                "moe_gmm": (steps[0] + steps[1]) * n * GMM_PER_LAYER if cfg.num_experts else 0,
+                "quant_matmul": (steps[0] + steps[1]) * _qmm_per_step(n) if quantized else 0}
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
@@ -1360,6 +1385,303 @@ def phase_serve_moe(torch) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------- #
+# the SSM path: mamba2-780m on the ssd_scan kernel
+# --------------------------------------------------------------------------- #
+def _ssd_inputs(torch, gen, b, s, h, p, g, n, dtype, live=None, unit=False):
+    """Seeded SSD inputs drawn as tests/test_kernels.py draws them: x
+    N(0, 0.5^2), B and C N(0, 0.3^2) in `dtype`, dt = softplus(N(0, 1)) and
+    A = -exp(N(0, 0.3^2)) in float32 (`unit`: x, B and C N(0, 1)); with
+    `live`, dt is zero past row `live` (a prompt's padded last chunk)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    sx, sbc = (1.0, 1.0) if unit else (0.5, 0.3)
+    x = (sx * randn(b, s, h, p)).to(dtype)
+    bm, cm = ((sbc * randn(b, s, g, n)).to(dtype) for _ in range(2))
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    if live is not None:
+        dt[:, live:] = 0
+    a = -torch.exp(0.3 * randn(h))
+    return x, dt, a, bm, cm
+
+
+def _ssd_sequential64(torch, x, dt, a, bm, cm):
+    """The recurrence itself, one position at a time in float64: the
+    yardstick both fp32 evaluations (kernel and plain) are rounded from."""
+    b, s, h, p = x.shape
+    rep = h // bm.shape[2]
+    xd, dtd, ad = x.double(), dt.double(), a.double()
+    bd = bm.double().repeat_interleave(rep, dim=2)
+    cd = cm.double().repeat_interleave(rep, dim=2)
+    state = torch.zeros((b, h, bm.shape[3], p), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtd[:, t] * ad)[..., None, None]
+        state = state * decay + dtd[:, t, :, None, None] * bd[:, t, :, :, None] * xd[:, t, :, None]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cd[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_bound(b, s, h, p, g, n, chunk, esize, dtype_name):
+    """x and y, B, C and dt read or written once, the fp32 final state
+    written once; the products the dual form needs: C B^T on the causal
+    pairs once per group and chunk, M x on the causal pairs and the state
+    update per head and chunk, and C . state per head for every chunk after
+    the first (the state entering the first is zero)."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esize + 4 * (b * s * h + h + b * h * n * p)
+    macs = b * nc * (g * pairs * n + h * pairs * p + h * chunk * n * p)
+    macs += b * (nc - 1) * h * chunk * n * p
+    return bound_ms(nbytes, 2 * macs, PEAK_BF16_TC if dtype_name == "bfloat16" else PEAK_FP32)
+
+
+def phase_kernels_ssd(torch, flush) -> dict:
+    """ssd_scan against ssd_scan_ref at mamba2-780m's widths (H = 48, P =
+    64, N = 128): the serve chunk (S = chunk = 128), the same with dt zero
+    past row 37, the whole 1316-token prompt (chunk gcd(128, 1316) = 4),
+    B = 2 S = 2048 (16 carried chunks) and G = 8 groups; fp32 and bf16,
+    y and the final state within TOLS, each launch pair torch.equal.  Times
+    (L2 flushed) at the main path's cases; no single PyTorch call computes
+    the scan, so the library column is empty.  Returns the main-path cases
+    (bf16: the serve chunk, the whole prompt)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan_ref import ssd_scan_ref
+
+    cfg = get_config(SSM_ARCH)
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    report = {}
+    # (key of a main-path case or None, label, B, S, G, chunk, live rows)
+    cases = [("ssd_scan", "serve chunk", 1, 128, 1, 128, None),
+             (None, "serve chunk, dt zero past row 37", 1, 128, 1, 128, 37),
+             ("ssd_scan/whole_prompt", "whole prompt", 1, 1316, 1, 4, None),
+             (None, "16 carried chunks", 2, 2048, 1, 128, None),
+             (None, "8 groups", 1, 256, 8, 128, None)]
+    for key, label, b, s, g, chunk, live in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).removeprefix("torch.")
+            es = torch.empty((), dtype=dtype).element_size()
+            args = _ssd_inputs(torch, gen, b, s, h, p, g, n, dtype, live)
+            full = f"{label}: B={b} S={s} H={h} P={p} G={g} N={n} chunk {chunk}"
+            y, st = ssd_scan(*args, chunk=chunk)
+            y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+            err = max(_check("kernels", f"ssd_scan {full} y", y, y_ref, dn),
+                      _check("kernels", f"ssd_scan {full} state", st, st_ref, dn))
+            y2, st2 = ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+                fail("kernels", f"ssd_scan {full} {dn}: non-finite output")
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                fail("kernels", f"ssd_scan {full} {dn}: two launches differ")
+            if key is None:
+                print(f"[kernels] ssd_scan {full:<60} {dn:<8} max_abs_err {err:.3g}, "
+                      "two launches equal")
+                continue
+            _record(report, key, full, dn, err,
+                    time_ms(torch, lambda: ssd_scan(*args, chunk=chunk), flush),
+                    time_ms(torch, lambda: ssd_scan_ref(*args, chunk=chunk), flush, iters=5),
+                    None, ssd_bound(b, s, h, p, g, n, chunk, es, dn), dn == "bfloat16")
+            del args, y, st, y_ref, st_ref, y2, st2
+    # at unit scale (x, B, C ~ N(0, 1): scores C.B of spread sqrt(N) = 11)
+    # fp32 rounding alone exceeds TOLS: both evaluations against the
+    # recurrence in float64 show how far each is from the exact result
+    args = _ssd_inputs(torch, gen, 1, 128, h, p, 1, n, torch.float32, unit=True)
+    y64, st64 = _ssd_sequential64(torch, *args)
+    outs = {"kernel": ssd_scan(*args, chunk=128), "plain": ssd_scan_ref(*args, chunk=128)}
+    errs = {name: ((y.double() - y64).abs().max().item(), (st.double() - st64).abs().max().item())
+            for name, (y, st) in outs.items()}
+    gap = (outs["kernel"][0] - outs["plain"][0]).abs().max().item()
+    print(f"[kernels] ssd_scan unit-scale serve chunk, fp32, max |y| {y64.abs().max().item():.4g}: "
+          f"kernel - plain {gap:.3g}; against the float64 recurrence "
+          f"y / state: kernel {errs['kernel'][0]:.3g} / {errs['kernel'][1]:.3g}, plain "
+          f"{errs['plain'][0]:.3g} / {errs['plain'][1]:.3g} (informational)")
+    print("[kernels] ssd_scan: every case inside TOLS, bit-identical over two launches")
+    return report
+
+
+def _ssm_departure(torch, m_cuda, m_plain, tokens) -> None:
+    """Where the CUDA binding's 128-token prefill (the scan of prefill_into's
+    first chunk) departs from the plain binding's; printed, not checked.
+    After each block: the residual streams' difference at the last token
+    (the one the logits read) over max |plain| there, and over all tokens;
+    the block's own part (the CUDA block on the plain stream); the scan's
+    own part at the last token (kernel and plain on the plain block's
+    scan inputs), and how far each is from the recurrence in float64 on
+    the same inputs.  Then the logits over the real vocabulary."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan_ref import ssd_scan_ref
+
+    cfg = m_plain.cfg
+    tag = "[ssm-model] departure of the 128-token prefill"
+    plain_binding = m_plain.binding
+    calls = []
+
+    def spy(*args, chunk):
+        calls.append((args, chunk))
+        return plain_binding["ssd_scan"](*args, chunk=chunk)
+
+    m_plain.binding = {**{op: plain_binding[op] for op in plain_binding}, "ssd_scan": spy}
+    try:
+        with torch.no_grad():
+            xc, xp = m_cuda._embed(tokens), m_plain._embed(tokens)
+            for i in range(cfg.num_layers):
+                xp_next = m_plain._block(i, xp, "prefill")[0]
+                args, chunk = calls.pop()
+                own = _rel(m_cuda._block(i, xp, "prefill")[0][:, -1], xp_next[:, -1])
+                xc = m_cuda._block(i, xc, "prefill")[0]
+                y_k = ssd_scan(*args, chunk=chunk)[0][:, -1].double()
+                y_p = ssd_scan_ref(*args, chunk=chunk)[0][:, -1].double()
+                y64 = _ssd_sequential64(torch, *args)[0][:, -1]
+                print(f"{tag}: block {i}: stream at the last token "
+                      f"{_rel(xc[:, -1], xp_next[:, -1]):.3g} (all tokens {_rel(xc, xp_next):.3g});"
+                      f" the block's own {own:.3g}; its scan (chunk {chunk}) at the last token: "
+                      f"kernel vs plain {_rel(y_k, y_p):.3g}, against float64 kernel "
+                      f"{_rel(y_k, y64):.3g} plain {_rel(y_p, y64):.3g}, max |y| there "
+                      f"{y64.abs().max().item():.4g}")
+                xp = xp_next
+            v = cfg.vocab_size
+            lc = m_cuda._logits(xc[:, -1:].contiguous())[:, 0, :v]
+            lp = m_plain._logits(xp[:, -1:].contiguous())[:, 0, :v]
+            print(f"{tag}: logits {_rel(lc, lp):.3g}; the CUDA final norm on the plain stream "
+                  f"{_rel(m_cuda._logits(xp[:, -1:].contiguous())[:, 0, :v], lp):.3g}")
+    finally:
+        m_plain.binding = plain_binding
+
+
+def phase_model_ssm(torch) -> None:
+    """mamba2 at full width, 2 layers, fp32: the CUDA binding's logits
+    against the plain binding's for prefill (B = 2, S = 300: chunk
+    gcd(128, 300) = 4), prefill_into over 128 + 128 + 44 and decode with
+    one parked row, whose state and conv tail must stay bit-identical."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.launch.bundle import make_bundle
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=2, dtype="float32")
+    runtime = Runtime()
+    cuda = runtime.deploy(make_bundle(SSM_ARCH), device="cuda")
+    runtime.cleanup()
+    plain = runtime.deploy(make_bundle(SSM_ARCH), device="cuda", native_ops=False)
+    runtime.cleanup()
+    m_cuda = Model(cfg, cuda.binding, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    m_plain = Model(cfg, plain.binding, device="cuda").load_params(
+        dict(m_cuda.named_parameters()))
+    rng = np.random.default_rng(SEED)
+
+    v = cfg.vocab_size   # mamba2 pads its vocab to 50304: the padded columns read -1e9
+
+    def compare(label, a, b):
+        rel = _rel(a[..., :v], b[..., :v])
+        print(f"[ssm-model] {label:<44} logits {tuple(a.shape)} max|cuda-plain|/max|plain| "
+              f"{rel:.3g} (limit {SSM_MODEL_RTOL})")
+        if not bool(torch.isfinite(a).all()) or rel > SSM_MODEL_RTOL:
+            fail("ssm-model", f"{label}: relative error {rel:.3g} (or non-finite logits)")
+
+    tokens = rng.integers(0, cfg.vocab_size, (2, 300))
+    compare("prefill B=2 S=300", m_cuda.prefill({"tokens": tokens})[0],
+            m_plain.prefill({"tokens": tokens})[0])
+
+    slots, max_len, chunk, slot = 3, 512, 128, 1
+    prompt = rng.integers(0, cfg.vocab_size, 300)
+    caches = {m: m.init_cache(slots, max_len) for m in (m_cuda, m_plain)}
+    for start in range(0, len(prompt), chunk):
+        n = min(chunk, len(prompt) - start)
+        buf = np.zeros((1, chunk), np.int64)
+        buf[0, :n] = prompt[start:start + n]
+        out = {m: m.prefill_into(buf, caches[m], slot, start, n)[0] for m in caches}
+        compare(f"prefill_into slot {slot}, chunk at {start} ({n} live)", out[m_cuda],
+                out[m_plain])
+    _ssm_departure(torch, m_cuda, m_plain, prompt[None, :chunk])
+    whole = {m: m.prefill({"tokens": prompt[None]})[0] for m in caches}
+    for m, name in ((m_cuda, "cuda"), (m_plain, "plain")):
+        rel = _rel(out[m][..., :v], whole[m][..., :v])
+        print(f"[ssm-model] {name} binding: prefill_into vs whole-prompt prefill, max rel "
+              f"diff {rel:.3g} (limit {SSM_MODEL_RTOL})")
+        if rel > SSM_MODEL_RTOL:
+            fail("ssm-model", f"{name}: chunked prefill disagrees with whole-prompt prefill")
+
+    token = rng.integers(0, cfg.vocab_size, (slots, 1))
+    pos = np.array([5, len(prompt), max_len - 1], np.int32)
+    active = np.array([True, True, False])
+    parked = {m: {name: buf[:, 2].clone() for name, buf in caches[m]["p0"].items()}
+              for m in caches}
+    out = {m: m.decode(token, caches[m], pos, active)[0] for m in caches}
+    compare("decode pos [5, 300, parked]", out[m_cuda][:2], out[m_plain][:2])
+    for m, name in ((m_cuda, "cuda"), (m_plain, "plain")):
+        if not all(torch.equal(parked[m][name], caches[m]["p0"][name][:, 2])
+                   for name in parked[m]):
+            fail("ssm-model", f"{name}: decode moved the parked row's state")
+    print("[ssm-model] decode: the parked row's state and conv tail bit-identical")
+
+
+def phase_serve_ssm(torch) -> dict:
+    """Run S (contiguous), the whole-prompt prefill of request 0, and run
+    SP (paged, 25 pages) on full mamba2-780m; SP's tokens must equal S's.
+    The model has no KV pool: paging changes only the scheduler's page
+    bookkeeping."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.runtime import Runtime
+    from repro_torch.kernels import _build
+    from repro_torch.launch.bundle import make_bundle
+
+    cfg = get_config(SSM_ARCH)
+    print(f"[ssm-serve] device memory allocated before the SSM runs: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    runtime = Runtime()
+    container = runtime.deploy(make_bundle(SSM_ARCH), device="cuda")
+    for r in container.binding.reports:
+        print(f"[ssm-serve] bind {r.op:<18} swapped={r.swapped} provider={r.bound} ({r.reason})")
+        if not (r.swapped and r.bound == "cuda"):
+            fail("ssm-serve", f"op {r.op} is not bound to its CUDA kernel: {r.reason}")
+    runs = {}
+    run = _drive(torch, np, cfg, container, "S contiguous")
+    eng = run.pop("server").engine
+    first = run["reqs"][0]
+    _build.LAUNCHES.clear()
+    whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
+    torch.cuda.synchronize()
+    whole_launches = dict(_build.LAUNCHES)
+    whole_np = whole.cpu().numpy()
+    print(f"[ssm-serve] Model.prefill of request 0 ({first.prompt_len} tokens, scan chunk "
+          f"{math.gcd(cfg.ssm_chunk, first.prompt_len)}): logits {whole_np.shape} "
+          f"finite={bool(np.isfinite(whole_np).all())}; argmax equals run S's first token "
+          f"{int(np.argmax(whole_np)) == first.tokens[0]} (bf16, informational); launches "
+          f"{whole_launches}")
+    n = cfg.num_layers
+    if not np.isfinite(whole_np).all() or whole_np.shape != (eng.model.padded_vocab,):
+        fail("ssm-serve", "Model.prefill logits not finite or misshapen")
+    if whole_launches != {"ssd_scan": n, "rmsnorm": n + 1}:
+        fail("ssm-serve", f"whole-prompt prefill launched {whole_launches}")
+    runs["S"] = run
+    runs["prefill"] = whole_launches
+    del eng, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = _drive(torch, np, cfg, container, "SP paged, 25 pages", paged=True, num_pages=25)
+    sp.pop("server")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["SP"] = sp
+    peak = sp["stats"]["pages-allocated-peak"]
+    print(f"[ssm-serve] SP: pages-allocated-peak {int(peak)} (limit 24); tokens equal to S's: "
+          f"{sp['tokens'] == run['tokens']}")
+    if peak > 24:
+        fail("ssm-serve", f"SP allocated {peak} pages of 24")
+    if sp["tokens"] != run["tokens"]:
+        fail("ssm-serve", "SP (paged) tokens differ from S's (contiguous)")
+    runtime.cleanup()
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1383,6 +1705,7 @@ def main() -> int:
     cases.update(phase_kernel_forms(torch, flush))
     cases.update(phase_kernels_moe(torch, flush))
     cases.update(phase_kernels_quant(torch, flush))
+    cases.update(phase_kernels_ssd(torch, flush))
     del flush
     phase_model(torch)
     torch.cuda.empty_cache()
@@ -1400,6 +1723,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_serve_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model_ssm(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_serve_ssm(torch)
 
     # (kernels-line entry, the run that drove it, the op it counts under)
     entries = [("rmsnorm", serve["A"], "rmsnorm"),
@@ -1415,12 +1744,14 @@ def main() -> int:
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
                 ("moe_gmm", moe["M"], "moe_gmm"),
-                ("quant_matmul", quant["Q8"], "quant_matmul")]
+                ("quant_matmul", quant["Q8"], "quant_matmul"),
+                ("ssd_scan", ssm["S"], "ssd_scan"),
+                ("ssd_scan/whole_prompt", {"launches": ssm["prefill"]}, "ssd_scan")]
     kernels = []
     for key, run, op in entries:
-        kernel = op if op in ("rmsnorm", "moe_gmm", "quant_matmul") else "flash_attention"
+        kernel = op if op in SOURCES else "flash_attention"
         source, replaces = SOURCES[kernel]
-        kernels.append({"name": kernel if kernel == op else f"{kernel}/{key}",
+        kernels.append({"name": key if kernel == op else f"{kernel}/{key}",
                         "route": "cuda", "source": source, "replaces": replaces,
                         "launches": run["launches"][op], **cases[key],
                         # the line is printed only when every phase passed

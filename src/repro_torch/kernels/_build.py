@@ -28,7 +28,7 @@ __all__ = ["LAUNCHES", "library", "check", "check_layout", "dtype_code", "stream
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "binding.cpp", CSRC / "rmsnorm.cu", CSRC / "flash_attention.cu",
-           CSRC / "moe_gmm.cu", CSRC / "quant_matmul.cu")
+           CSRC / "moe_gmm.cu", CSRC / "quant_matmul.cu", CSRC / "ssd_scan.cu")
 # src/repro_torch/kernels/_build.py -> the repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
@@ -70,6 +70,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ip = ctypes.POINTER(i)
     lib.repro_quant_matmul_occupancy.argtypes = [i, i, ctypes.c_longlong, ip, ip, ip]
     lib.repro_quant_matmul_occupancy.restype = i
+    lib.repro_ssd_scan.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.repro_ssd_scan.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

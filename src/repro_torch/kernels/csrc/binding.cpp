@@ -24,6 +24,10 @@ int repro_quant_matmul_launch(int dtype, int code, const void* x, const void* q,
                               const float* scale, void* out, float* ws, long long t, int d,
                               int f, int splits, int kchunk, void* stream);
 
+int repro_ssd_scan_launch(int dtype, const void* x, const float* dt, const float* a,
+                          const void* bm, const void* cm, void* y, float* state, int b, int s,
+                          int h, int p, int g, int n, int chunk, void* stream);
+
 int repro_quant_matmul_occupancy_query(int dtype, int code, long long t, int* rows,
                                        int* resident, int* sms);
 
@@ -67,8 +71,16 @@ int repro_quant_matmul_occupancy(int dtype, int code, long long t, int* rows, in
   return repro_quant_matmul_occupancy_query(dtype, code, t, rows, resident, sms);
 }
 
+int repro_ssd_scan(int dtype, const void* x, const void* dt, const void* a, const void* bm,
+                   const void* cm, void* y, void* state, int b, int s, int h, int p, int g,
+                   int n, int chunk, void* stream) {
+  return repro_ssd_scan_launch(dtype, x, static_cast<const float*>(dt),
+                               static_cast<const float*>(a), bm, cm, y,
+                               static_cast<float*>(state), b, s, h, p, g, n, chunk, stream);
+}
+
 const char* repro_error_string(int code) {
-  if (code < 0) return "unsupported dtype, head_dim, code format or split";
+  if (code < 0) return "unsupported dtype, head_dim, code format, split, chunk or state size";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

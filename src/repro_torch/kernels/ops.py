@@ -11,14 +11,14 @@ what this port implements:
     and windowed forms), ``moe_gmm`` (`moe_gmm_ref`: dropless at
     <= 1024 rows, the capacity-truncated baseline above, as in the JAX
     package) and ``quant_matmul`` (int8 or fp8 weight codes with
-    per-output-channel scales);
-  * the hand-written CUDA kernels (provider ``cuda``) for the same seven,
+    per-output-channel scales) and ``ssd_scan`` (the Mamba-2 chunked
+    scan, `ssd_scan_ref`);
+  * the hand-written CUDA kernels (provider ``cuda``) for the same eight,
     behind the ``cuda_kernels`` platform feature (``moe_gmm``'s is
     dropless at any row count).  Binding one builds the kernel library.
 
-``ssd_scan`` is declared but not ported yet: a deployment lists it as
-unported.  The quantized-KV form of decode and chunk attention
-(``k_scale``/``v_scale``) raises NotImplementedError.
+Every declared op is ported.  The quantized-KV form of decode and chunk
+attention (``k_scale``/``v_scale``) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm_ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan_ref import ssd_scan_ref
 
 __all__ = ["ABIS", "OP_NAMES", "PORTED_OPS", "register_all"]
 
@@ -189,6 +191,7 @@ _REFS = {
     "chunk_attention": chunk_attention_ref,
     "moe_gmm": moe_gmm_ref,
     "quant_matmul": quant_matmul_ref,
+    "ssd_scan": ssd_scan_ref,
 }
 
 _NATIVES = {
@@ -199,6 +202,7 @@ _NATIVES = {
     "chunk_attention": _cuda_chunk_attention,
     "moe_gmm": moe_gmm,
     "quant_matmul": quant_matmul,
+    "ssd_scan": ssd_scan,
 }
 
 PORTED_OPS: tuple[str, ...] = tuple(sorted(_REFS))

@@ -1,15 +1,16 @@
-"""The text decoder as an `nn.Module`: dense or mixture-of-experts.
+"""The text decoder as an `nn.Module`: dense, mixture-of-experts or Mamba-2.
 
-A port of the dense and MoE families of `repro/models/model.py`: the
+A port of the dense, MoE and SSM families of `repro/models/model.py`: the
 same schema (embedding, a stack of [pre-norm, attention, post-norm,
-SiLU-GLU MLP or MoE] blocks, final norm, LM head), the same cache layout
+SiLU-GLU MLP or MoE] blocks or of [pre-norm, Mamba-2 mixer] blocks, final
+norm, LM head or the embedding tied as the head), the same cache layout
 and the same serving entry points — `prefill`, `prefill_into` (chunked
 prefill into one slot of a batched cache) and `decode` (one
 continuous-batching tick), each over a contiguous cache (`init_cache`) or
 a paged one (`init_paged_cache`: k/v page pools shared by all slots,
-addressed through per-slot block tables), with an optional sliding
-window — plus `export_paged_slot` / `import_paged_slot`, the KV
-handoff's page copy.
+addressed through per-slot block tables; an SSM's state and conv tail
+stay slot-indexed), with an optional sliding window for attention — plus
+`export_paged_slot` / `import_paged_slot`, the KV handoff's page copy.
 
 The JAX model scans one stacked parameter group over its blocks; here each
 block is a module of an `nn.ModuleList` holding its own slice of the stack
@@ -20,7 +21,10 @@ The kernel ops run through `binding` (op name -> callable), which the
 caller always passes — a deployed Container's binding; there is no
 implicit one.  A MoE block (every block of a config with ``moe_every ==
 1``: moonshot, phi3.5-moe) runs `repro_torch.models.moe.moe_apply` after
-its post-norm, its grouped matmuls through ``binding["moe_gmm"]``.
+its post-norm, its grouped matmuls through ``binding["moe_gmm"]``.  An
+SSM block (``family == "ssm"``: mamba2) runs
+`repro_torch.models.ssm`, its scan through ``binding["ssd_scan"]``; its
+decode freezes the state of rows that are not `active`.
 
 Parameters are created on the meta device and bound by `load_params`
 (weights from elsewhere, e.g. `repro_torch.convert.params_from_jax`) or
@@ -31,9 +35,11 @@ pair binds that leaf in storage form (int8 or fp8 codes, float32 scales
 with axis -2 reduced away; what `checkpoint.manifest.quantize_tree` or a
 quantized checkpoint gives).  The MLP and the LM head then run
 ``binding["quant_matmul"]``; the attention projections dequantize their
-leaves, and the embedding dequantizes only the rows it gathers.
+leaves, and the embedding dequantizes only the rows it gathers.  A tied
+head (``tie_embeddings``: no ``lm_head``) is the embedding transposed,
+dequantized whole when it is in storage form, as in JAX.
 
-SSM, encoder-decoder, vision, tied-embedding and interleaved-MoE
+Hybrid, encoder-decoder, vision, non-RMSNorm and interleaved-MoE
 configurations are not ported: they raise NotImplementedError.
 """
 
@@ -50,6 +56,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.schema import LeafSpec, init_params, map_leaves, torch_dtype
+from repro_torch.models.ssm import (ssm_apply, ssm_decode, ssm_init_cache_shapes,
+                                    ssm_prefill_chunk, ssm_schema)
 
 __all__ = ["Model", "flatten_params", "tree_items"]
 
@@ -161,12 +169,13 @@ def tree_items(tree: Tree, prefix: str = ""):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, binding, *, device: str | torch.device = "cuda"):
         super().__init__()
-        if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
-                or cfg.activation != "silu_glu" or cfg.ssm_state or cfg.is_enc_dec
-                or cfg.modality != "text" or cfg.tie_embeddings
+        ssm = cfg.family == "ssm"
+        if (cfg.family not in ("dense", "moe", "ssm") or cfg.norm != "rmsnorm"
+                or cfg.activation != "silu_glu" or bool(cfg.ssm_state) != ssm
+                or cfg.is_enc_dec or cfg.modality != "text"
                 or (cfg.num_experts and cfg.moe_every != 1)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense or all-MoE, untied, RMSNorm + SiLU-GLU text "
+                f"{cfg.name}: only dense, all-MoE or Mamba-2, RMSNorm + SiLU-GLU text "
                 "decoders are ported")
         self.cfg = cfg
         self.binding = binding
@@ -180,35 +189,40 @@ class Model(nn.Module):
         self.embed = _Leaves({"tok": self.schema()["embed"]["tok"]}, self.dtype)
         self.layers = nn.ModuleList(_Block(layer, self.dtype) for _ in range(self.num_blocks))
         self.final_norm = _Leaves(L.norm_schema(cfg), self.dtype)
-        self.lm_head = _Leaves(self.schema()["lm_head"], self.dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = _Leaves(self.schema()["lm_head"], self.dtype)
 
     # ------------------------------------------------------------------ #
     # schema and weights
     # ------------------------------------------------------------------ #
     def _layer_schema(self) -> Tree:
         cfg = self.cfg
-        sch: Tree = {
-            "pre_norm": L.norm_schema(cfg),
-            "attn": L.attention_schema(cfg),
-            "post_norm": L.norm_schema(cfg),
-        }
-        if cfg.is_moe_layer(0):
-            sch["moe"] = moe_schema(cfg)
+        sch: Tree = {"pre_norm": L.norm_schema(cfg)}
+        if cfg.is_attn_layer(0):
+            sch["attn"] = L.attention_schema(cfg)
         else:
-            sch["mlp"] = L.mlp_schema(cfg)
+            sch["ssm"] = ssm_schema(cfg)
+        if cfg.d_ff or cfg.num_experts:
+            sch["post_norm"] = L.norm_schema(cfg)
+            if cfg.is_moe_layer(0):
+                sch["moe"] = moe_schema(cfg)
+            else:
+                sch["mlp"] = L.mlp_schema(cfg)
         return sch
 
     def schema(self) -> Tree:
         """The JAX model's schema tree (blocks stacked under decoder/p0)."""
         cfg = self.cfg
-        return {
+        sch: Tree = {
             "embed": {"tok": LeafSpec((self.padded_vocab, cfg.d_model), ("vocab", "embed"),
                                       scale=0.01)},
             "decoder": {"p0": _stack(self._layer_schema(), self.num_blocks)},
             "final_norm": L.norm_schema(cfg),
-            "lm_head": {"w": LeafSpec((cfg.d_model, self.padded_vocab), ("embed", "vocab"),
-                                      init="scaled")},
         }
+        if not cfg.tie_embeddings:
+            sch["lm_head"] = {"w": LeafSpec((cfg.d_model, self.padded_vocab),
+                                            ("embed", "vocab"), init="scaled")}
+        return sch
 
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from `generator` (on the model's device)."""
@@ -222,8 +236,9 @@ class Model(nn.Module):
         is moved to the model's device and dtype (codes keep theirs, scales
         are float32), shapes must match.  A leaf given as ``<leaf>.q`` and
         ``<leaf>.scale`` is bound in storage form."""
-        groups = [("embed", self.embed), ("final_norm", self.final_norm),
-                  ("lm_head", self.lm_head)]
+        groups = [("embed", self.embed), ("final_norm", self.final_norm)]
+        if not self.cfg.tie_embeddings:
+            groups.append(("lm_head", self.lm_head))
         groups += [(f"layers.{i}.{name}", leaves) for i, blk in enumerate(self.layers)
                    for name, leaves in blk.named_children()]
         for prefix, leaves in groups:
@@ -245,42 +260,62 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     # caches
     # ------------------------------------------------------------------ #
-    def init_cache(self, batch: int, max_len: int) -> Tree:
-        """Zeroed KV cache ``{"p0": {"k", "v"}}``, each (layers, B, max_len,
-        KV, Dh) in the model dtype — the JAX model's layout."""
+    def _slot_leaves(self, batch: int) -> dict:
+        """The per-slot leaves of the cache (an SSM's state and conv tail),
+        stacked over the blocks: name -> (shape, dtype name)."""
+        if self.cfg.family != "ssm":
+            return {}
+        return {name: ((self.num_blocks,) + shape, dt)
+                for name, (shape, dt) in ssm_init_cache_shapes(self.cfg, batch).items()}
+
+    def cache_shapes(self, batch: int, max_len: int) -> Tree:
+        """Contiguous cache entry shapes, as the JAX model's: attention k/v
+        (layers, B, max_len, KV, Dh) in the model dtype, or an SSM's state
+        (layers, B, H, N, P) float32 and conv tail (layers, B, conv-1, Din)."""
+        if self.cfg.family == "ssm":
+            return {"p0": self._slot_leaves(batch)}
         shape = (self.num_blocks, batch, max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
-        return {"p0": {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                       for name in ("k", "v")}}
+        return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
+
+    def init_cache(self, batch: int, max_len: int) -> Tree:
+        """Zeroed cache ``{"p0": {...}}`` of `cache_shapes`."""
+        return self._zeros(self.cache_shapes(batch, max_len))
 
     def paged_cache_shapes(self, num_pages: int, page_size: int, slots: int) -> Tree:
         """Paged-cache entry shapes, as the JAX model's: attention k/v become
         page pools (layers, num_pages, page_size, KV, Dh) shared by all
-        slots.  ``slots`` sizes per-slot state, of which an attention-only
-        decoder (dense or MoE) has none."""
+        slots; an SSM's state and conv tail are O(1) a slot and stay
+        slot-indexed (``slots`` rows) as in `cache_shapes`."""
+        if self.cfg.family == "ssm":
+            return {"p0": self._slot_leaves(slots)}
         shape = (self.num_blocks, num_pages, page_size, self.cfg.num_kv_heads,
                  self.cfg.head_dim)
         return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
 
     def init_paged_cache(self, num_pages: int, page_size: int, slots: int) -> Tree:
-        """Zeroed paged cache ``{"p0": {"k", "v"}}`` of `paged_cache_shapes`."""
+        """Zeroed paged cache ``{"p0": {...}}`` of `paged_cache_shapes`."""
+        return self._zeros(self.paged_cache_shapes(num_pages, page_size, slots))
+
+    def _zeros(self, shapes: Tree) -> Tree:
         return {pj: {name: torch.zeros(shape, dtype=torch_dtype(dt), device=self.device)
                      for name, (shape, dt) in entry.items()}
-                for pj, entry in self.paged_cache_shapes(num_pages, page_size, slots).items()}
+                for pj, entry in shapes.items()}
 
     def export_paged_slot(self, cache: Tree, pages, slot: int) -> dict:
         """One slot's state out of a paged cache, as host numpy arrays.
 
         ``pages`` is the slot's leased page ids in block-table order (only
-        the written prefix).  Keys are ``"p{j}/{leaf}"`` and k/v yield
-        ``(layers, len(pages), page_size, KV, Dh)`` page stacks, as the JAX
-        model exports them; bf16 pools export as float32 (exact), since
-        numpy has no bfloat16.
+        the written prefix).  Keys are ``"p{j}/{leaf}"``: k/v yield
+        ``(layers, len(pages), page_size, KV, Dh)`` page stacks and an SSM's
+        leaves the slot's row ``(layers, ...)``, as the JAX model exports
+        them; bf16 leaves export as float32 (exact), since numpy has no
+        bfloat16.
         """
         ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
         out: dict = {}
         for pj, entry in cache.items():
             for name, buf in entry.items():
-                stack = buf[:, ix]
+                stack = buf[:, ix] if name in ("k", "v") else buf[:, slot]
                 if stack.dtype == torch.bfloat16:
                     stack = stack.float()
                 out[f"{pj}/{name}"] = stack.cpu().numpy()
@@ -289,8 +324,10 @@ class Model(nn.Module):
     def import_paged_slot(self, cache: Tree, arrays: Mapping[str, Any], pages,
                           slot: int) -> Tree:
         """Scatter an exported slot into this cache's own ``pages`` (same
-        count, any ids), in place; returns the cache.  Every leaf is checked
-        before any buffer is written."""
+        count, any ids) and, for an SSM's leaves, its row ``slot``, in
+        place; returns the cache.  Every leaf is checked before any buffer
+        is written."""
+        ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
         staged = []
         for pj, entry in cache.items():
             for name, buf in entry.items():
@@ -298,36 +335,60 @@ class Model(nn.Module):
                 if key not in arrays:
                     raise ValueError(f"paged-slot import: missing leaf {key}")
                 src = np.asarray(arrays[key])
-                want = (buf.shape[0], len(pages)) + tuple(buf.shape[2:])
+                paged = name in ("k", "v")
+                want = ((buf.shape[0], len(pages)) if paged else (buf.shape[0],)) \
+                    + tuple(buf.shape[2:])
                 if src.shape != want:
                     raise ValueError(f"paged-slot import: {key} is {src.shape}, "
-                                     f"target pages need {want}")
+                                     f"{'target pages' if paged else 'slot row'} need {want}")
                 if src.dtype.kind not in "fiu":   # e.g. ml_dtypes' bfloat16
                     src = src.astype(np.float32)
-                staged.append((buf, src))
-        ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
-        for buf, src in staged:
-            buf[:, ix] = torch.from_numpy(src).to(device=self.device, dtype=buf.dtype)
+                staged.append((buf, (slice(None), ix if paged else slot),
+                               np.require(src, requirements="W")))
+        for buf, where, src in staged:
+            buf[where] = torch.from_numpy(src).to(device=self.device, dtype=buf.dtype)
         return cache
 
     # ------------------------------------------------------------------ #
     # forward pieces
     # ------------------------------------------------------------------ #
     def _block(self, i: int, x: torch.Tensor, mode: str, lc=None, pos=None, positions=None,
-               **attn_kw):
+               n_valid=None, active=None, **attn_kw):
+        """One block.  The cache entries `lc` are updated in place; returns
+        (x, the whole-prompt cache entries in "prefill" mode, else None)."""
         blk, cfg, binding = self.layers[i], self.cfg, self.binding
         h = L.norm_apply(blk.pre_norm, x, cfg, binding)
-        if mode == "decode":
-            y, kv = L.attention_decode(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
+        kv = None
+        if hasattr(blk, "ssm"):
+            if mode == "decode":
+                y, new = ssm_decode(blk.ssm, h, lc, cfg)
+                if active is not None:
+                    # a parked row must not advance: unlike a KV write, which
+                    # lands where no live row reads, the recurrence would fold
+                    # the dummy token into the row's state for good
+                    new = {name: torch.where(active.view(-1, *(1,) * (t.dim() - 1)), t, lc[name])
+                           for name, t in new.items()}
+                for name, t in new.items():
+                    lc[name].copy_(t)
+            elif mode == "chunk":
+                y, new = ssm_prefill_chunk(blk.ssm, h, lc, pos, n_valid, cfg, binding)
+                for name, t in new.items():
+                    lc[name].copy_(t)
+            else:
+                y, kv = ssm_apply(blk.ssm, h, cfg, binding, return_state=True)
+        elif mode == "decode":
+            y, _ = L.attention_decode(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
         elif mode == "chunk":
-            y, kv = L.attention_chunk(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
+            y, _ = L.attention_chunk(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
         else:
             y, kv = L.attention_apply(blk.attn, h, cfg, binding, positions=positions)
+            kv = {name: t.to(self.dtype) for name, t in kv.items()}
         x = x + y
-        h = L.norm_apply(blk.post_norm, x, cfg, binding)
         if hasattr(blk, "moe"):
-            return x + moe_apply(blk.moe, h, cfg, binding), kv
-        return x + L.mlp_apply(blk.mlp, h, binding), kv
+            x = x + moe_apply(blk.moe, L.norm_apply(blk.post_norm, x, cfg, binding), cfg, binding)
+        elif hasattr(blk, "mlp"):
+            x = x + L.mlp_apply(blk.mlp, L.norm_apply(blk.post_norm, x, cfg, binding), binding)
+        return x, kv
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -341,7 +402,13 @@ class Model(nn.Module):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(self.final_norm, x, self.cfg, self.binding)
-        w = self.lm_head["w"]
+        if self.cfg.tie_embeddings:
+            # the (vocab, d) embedding, transposed; its per-d-column scales do
+            # not fit quant_matmul's per-output-channel layout, so a tied head
+            # in storage form is dequantized whole, as in JAX
+            w = L.dequant_param(self.embed["tok"], x.dtype).t()
+        else:
+            w = self.lm_head["w"]
         if L.is_quantized(w):
             b, s, d = x.shape
             logits = self.binding["quant_matmul"](x.reshape(b * s, d), w["q"],
@@ -353,11 +420,11 @@ class Model(nn.Module):
             logits = torch.where(mask, logits, -1e9)
         return logits
 
-    def _slot_cache(self, cache: Tree, i: int, rows: slice) -> dict:
-        return {name: buf[i, rows] for name, buf in cache["p0"].items()}
-
-    def _layer_pools(self, cache: Tree, i: int) -> dict:
-        return {name: buf[i] for name, buf in cache["p0"].items()}
+    def _layer_cache(self, cache: Tree, i: int, rows: slice, paged: bool) -> dict:
+        """Block i's cache entries: a paged k/v pool whole, every other leaf
+        (contiguous k/v, an SSM's state and conv tail) at `rows`."""
+        return {name: buf[i] if paged and name in ("k", "v") else buf[i, rows]
+                for name, buf in cache["p0"].items()}
 
     def _table(self, table) -> torch.Tensor:
         """A host block table as int32 on the device: one copy per tick or
@@ -370,16 +437,17 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Mapping[str, Any]):
         """Whole-prompt forward: ``batch["tokens"]`` (B, S) -> (last-token
-        logits (B, vocab) float32, cache with S positions)."""
+        logits (B, vocab) float32, the cache it leaves: k/v with S
+        positions, or an SSM's state and conv tail)."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=self.device)
-        ks, vs = [], []
+        leaves: dict[str, list] = {}
         for i in range(self.num_blocks):
             x, kv = self._block(i, x, "prefill", positions=positions)
-            ks.append(kv["k"].to(self.dtype))
-            vs.append(kv["v"].to(self.dtype))
+            for name, t in kv.items():
+                leaves.setdefault(name, []).append(t)
         logits = self._logits(x[:, -1:, :].contiguous())[:, 0]
-        return logits, {"p0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        return logits, {"p0": {name: torch.stack(ts) for name, ts in leaves.items()}}
 
     @torch.no_grad()
     def prefill_into(self, tokens, cache: Tree, slot: int, pos: int, n_valid: int | None = None,
@@ -390,28 +458,30 @@ class Model(nn.Module):
         row to fill; pos: global position of tokens[:, 0] (the caller keeps
         pos + C <= max_len); n_valid: real tokens in the chunk (default C).
         The cache is updated in place.  Returns (logits (1, vocab) of token
-        n_valid-1, cache).
+        n_valid-1, cache).  At pos == 0 a slot's leftover SSM state and
+        conv tail are not read.
 
         With `block_row` (this slot's (nblocks,) block-table row, a host
-        array) the cache is paged (`init_paged_cache`): each layer's pools
-        are passed whole, and the chunk fills page block_row[pos // C].
-        With `window` each chunk query attends only its trailing `window`
-        keys; pages wholly behind the window may already be recycled.
+        array) the cache is paged (`init_paged_cache`): each layer's k/v
+        pools are passed whole, and the chunk fills page block_row[pos // C];
+        an SSM's leaves are the slot's row either way.  With `window` each
+        chunk query attends only its trailing `window` keys; pages wholly
+        behind the window may already be recycled.
         """
         tokens = torch.as_tensor(tokens, device=self.device)
         if n_valid is None:
             n_valid = tokens.shape[1]
         pos = int(pos)
         x = self._embed(tokens)
+        paged = block_row is not None
         attn_kw = {"window": window}
-        if block_row is not None:
+        if paged and "k" in cache["p0"]:
             row = np.asarray(block_row)
             attn_kw["block_tables"] = self._table(row[None])
             attn_kw["write_page"] = int(row[pos // tokens.shape[1]])
         for i in range(self.num_blocks):
-            lc = (self._layer_pools(cache, i) if block_row is not None
-                  else self._slot_cache(cache, i, slice(slot, slot + 1)))
-            x, _ = self._block(i, x, "chunk", lc=lc, pos=pos, **attn_kw)
+            lc = self._layer_cache(cache, i, slice(slot, slot + 1), paged)
+            x, _ = self._block(i, x, "chunk", lc=lc, pos=pos, n_valid=n_valid, **attn_kw)
         logits = self._logits(x[:, n_valid - 1:n_valid, :].contiguous())[:, 0]
         return logits, cache
 
@@ -419,25 +489,27 @@ class Model(nn.Module):
     def decode(self, token, cache: Tree, pos, active=None, block_tables=None,
                window: int | None = None):
         """One batched decode tick.  token: (B, 1) int; pos: int, () or (B,)
-        int — every row at its own position; active: accepted for the JAX
-        signature (it freezes recurrent state, which attention-only
-        decoders have none of — parked rows write at the position the scheduler parks;
-        paged: table row all zeros, the write lands in the park page).
-        block_tables: (B, nblocks) int host array — the cache is paged.
-        window: sliding-window decode, only the trailing `window` cache
-        slots are attended.  The cache is updated in place.  Returns
+        int — every row at its own position; active: optional (B,) bool —
+        the rows whose SSM state and conv tail may advance (the others keep
+        theirs); parked rows' KV writes land at the position the scheduler
+        parks (paged: table row all zeros, the write lands in the park
+        page).  block_tables: (B, nblocks) int host array — the cache is
+        paged.  window: sliding-window decode, only the trailing `window`
+        cache slots are attended.  The cache is updated in place.  Returns
         (logits (B, vocab), cache).
         """
         x = self._embed(token)
         b = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b).contiguous()
+        if active is not None:
+            active = torch.as_tensor(np.asarray(active, dtype=bool), device=self.device)
+        paged = block_tables is not None
         attn_kw = {"window": window}
-        if block_tables is not None:
+        if paged and "k" in cache["p0"]:
             table = self._table(block_tables)
             attn_kw["block_tables"] = table
             attn_kw["write_at"] = L.paged_write_index(pos, table, cache["p0"]["k"].shape[2])
         for i in range(self.num_blocks):
-            lc = (self._layer_pools(cache, i) if block_tables is not None
-                  else self._slot_cache(cache, i, slice(None)))
-            x, _ = self._block(i, x, "decode", lc=lc, pos=pos, **attn_kw)
+            lc = self._layer_cache(cache, i, slice(None), paged)
+            x, _ = self._block(i, x, "decode", lc=lc, pos=pos, active=active, **attn_kw)
         return self._logits(x)[:, 0], cache

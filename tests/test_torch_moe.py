@@ -462,7 +462,8 @@ def test_moonshot_prefill_decode_consistency(jax_params, kernels):
 
 def test_moe_refusals_kept():
     cfg = get_config(MOONSHOT).reduced()
-    for change in ({"moe_every": 2}, {"ssm_state": 16}, {"tie_embeddings": True}):
+    for change in ({"moe_every": 2}, {"family": "hybrid", "ssm_state": 16, "attn_every": 2},
+                   {"encoder_layers": 2, "family": "audio"}):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **change), {}, device="meta")
 
