@@ -9,7 +9,8 @@ since it sets the order of the sums.
 
 The arguments are checked as the kernel needs them on any device; then a
 CUDA tensor launches the kernel (or raises) and a CPU tensor takes the
-plain version, `ssd_scan_ref`.
+plain version, `ssd_scan_ref`.  An empty x launches nothing: y is empty
+and the state zero, as the plain version gives it.
 """
 
 from __future__ import annotations
@@ -59,10 +60,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
-    lib = _build.library()
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
+    if x.numel() == 0:                                              # nothing to launch
+        return y, torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    lib = _build.library()
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.repro_ssd_scan(_build.dtype_code(x, "ssd_scan"), x.data_ptr(), dt.data_ptr(),

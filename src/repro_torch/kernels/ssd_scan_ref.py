@@ -27,6 +27,9 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 128):
     g, n = Bm.shape[2], Bm.shape[3]
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    if x.numel() == 0:                                           # no step: the zero state
+        return torch.empty_like(x), torch.zeros((b, h, n, p), dtype=torch.float32,
+                                                device=x.device)
     rep = h // g
     Bh = Bm.repeat_interleave(rep, dim=2).float()
     Ch = Cm.repeat_interleave(rep, dim=2).float()

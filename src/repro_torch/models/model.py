@@ -501,8 +501,10 @@ class Model(nn.Module):
         x = self._embed(token)
         b = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device).expand(b).contiguous()
-        if active is not None:
+        if active is not None and "state" in cache["p0"]:              # only SSM rows read it
             active = torch.as_tensor(np.asarray(active, dtype=bool), device=self.device)
+        else:
+            active = None
         paged = block_tables is not None
         attn_kw = {"window": window}
         if paged and "k" in cache["p0"]:

@@ -245,6 +245,34 @@ def test_ssd_scan_wrapper_takes_the_plain_version_only_on_the_cpu(monkeypatch):
     assert dict(_build.LAUNCHES) == before
 
 
+@pytest.mark.parametrize("shape", [(1, 0, 4, 8), (0, 16, 4, 8), (1, 16, 4, 0)],
+                         ids=["no-steps", "no-rows", "no-columns"])
+def test_ssd_scan_counts_no_launch_when_there_is_nothing_to_compute(shape, monkeypatch):
+    """Off the CPU an empty x launches nothing, so the wrapper neither
+    builds the library nor counts a launch, and its state is the plain
+    version's zeros, as JAX's.  (Meta tensors stand in for the card's: they
+    take the same branch and hold no data, so the zeros are read on the
+    CPU.)"""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    b, s, h, p = shape
+    g, n = 2, 16
+    args = [torch.zeros(b, s, h, p), torch.zeros(b, s, h), torch.zeros(h),
+            torch.zeros(b, s, g, n), torch.zeros(b, s, g, n)]
+    before = dict(_build.LAUNCHES)
+    y, st = ssd_scan(*(t.to("meta") for t in args), chunk=8)
+    assert dict(_build.LAUNCHES) == before
+    y_ref, st_ref = ssd_scan_ref(*args, chunk=8)
+    assert y.shape == y_ref.shape and y.dtype == y_ref.dtype
+    assert st.shape == st_ref.shape == (b, h, n, p) and st.dtype == torch.float32
+    y_jax, st_jax = jax_ssd_scan_ref(*(jnp.asarray(t.numpy()) for t in args), chunk=8)
+    assert y_ref.shape == y_jax.shape
+    np.testing.assert_array_equal(st_ref.numpy(), np.asarray(st_jax))
+    assert bool((st_ref == 0).all())
+
+
 def test_ssd_scan_wrapper_limits_match_the_kernel_source():
     """The wrapper checks the kernel's chunk and state limits on every
     device, the card's kernel library unbuilt: its constants must be the
