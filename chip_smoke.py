@@ -52,6 +52,21 @@ Phases, each one printed line per case, each raising on failure:
                one whole-prompt Model.prefill, run Q8P int8 paged on 25
                pages (its tokens must equal Q8's), run QF8 fp8 contiguous;
                every step launches quant_matmul 3 x 48 + 1 times.
+               The quantized KV cache (its kernel cases run with phase 3):
+               the flash kernel's quantized-KV form, int8 and e4m3 caches
+               with one fp32 scale a row, at qwen's decode (B = 4, pos
+               100/700/1600/2047) and chunk (C = 128, pos 1792/1900)
+               shapes, contiguous, paged (page 128 and 16), windowed and
+               paged + windowed, q fp32 and bf16: within TOLS of the plain
+               version, inside ATTN_ENVELOPE of the fp32 oracle on the
+               unquantized cache, launch pairs torch.equal, W >= kv_len
+               bit-identical to no window; the 2-layer model phase again
+               over a cache of the weights' format; then the same int8
+               and fp8 trees served with quantize= (the KV cache
+               quantized too): run K8 int8 contiguous, K8P int8 paged on
+               25 pages (its tokens must equal K8's), KF8 fp8 contiguous,
+               each printing its share of K and V codes at the clip, its
+               attention launches a step and its peak memory.
   7. moe     — the MoE path, the repo's moonshot-v1-16b-a3b config
                (Moonlight-16B-A3B's widths; its 48 layers and MHA 16/16
                are the repo's, not the published model's)
@@ -132,6 +147,9 @@ UNIT_SCALE_RATIO = 2.0  # ssd_scan at unit scale: kernel's / plain's distance to
 # quantization grid's shapes (tests/test_quant_conformance.py): set for a
 # D = 64 contraction, so held only there
 QMM_ENVELOPE = {"int8": 0.35, "fp8": 1.50}
+# quantized-KV attention against the fp32 oracle on the unquantized cache
+# (tests/test_quant_conformance.py's ATTN_ENVELOPE)
+ATTN_ENVELOPE = {"int8": 0.12, "fp8": 0.30}
 QMM_GRID = [(8, 32, 32), (60, 64, 64), (7, 48, 32), (16, 32, 64)]
 # ragged shapes whose contraction the wrapper splits (D = 1000: 16 steps of
 # 64, the last 40 rows): the narrow tile (T <= 4) and the row tile with 5
@@ -150,9 +168,7 @@ SOURCES = {
                      "src/repro/kernels/quant_matmul.py:45"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:91"),
 }
-STILL_TO_PORT = [
-    "src/repro/kernels/flash_attention.py:186 quantized-KV form",
-]
+STILL_TO_PORT: list[str] = []   # every TPU kernel form has its CUDA kernel
 
 
 class PhaseError(RuntimeError):
@@ -193,11 +209,15 @@ def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attn_bound(b, sq, h, kv, dh, key_rows, pairs, esize, dtype_name, table_bytes=0):
-    """q and o once, the key_rows K and V rows the data needs once (and a
-    paged call's block table); 2 * Dh multiply-adds per (query, key) pair
-    for q.k and again for p.v."""
-    nbytes = (2 * b * sq * h * dh + 2 * key_rows * kv * dh) * esize + table_bytes
+def attn_bound(b, sq, h, kv, dh, key_rows, pairs, esize, dtype_name, table_bytes=0,
+               kv_esize=None):
+    """q and o once, the key_rows K and V rows the data needs once (at
+    kv_esize bytes an element, 1 for a quantized cache; default esize),
+    and `table_bytes` more (a paged call's block table, a quantized call's
+    scale rows); 2 * Dh multiply-adds per (query, key) pair for q.k and
+    again for p.v."""
+    kv_esize = esize if kv_esize is None else kv_esize
+    nbytes = 2 * b * sq * h * dh * esize + 2 * key_rows * kv * dh * kv_esize + table_bytes
     ops = 4 * dh * pairs * h
     return bound_ms(nbytes, ops, PEAK_BF16_TC if dtype_name == "bfloat16" else PEAK_FP32)
 
@@ -355,6 +375,40 @@ def phase_kernels(torch, flush) -> dict:
     return report
 
 
+def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fn, bnd,
+                main_case, bitwise=None, envelope=None):
+    """One flash-kernel case: cuda_fn() finite, within TOLS of plain_fn()
+    and equal to itself on a second launch; with `bitwise` (a launch at
+    W >= kv_len and its unwindowed counterpart) the two bit-identical; with
+    `envelope` ((oracle_fn, limit)) within `limit` of oracle_fn().  Then
+    timed and recorded (`_record`)."""
+    full = f"{key} {label}"
+    got = cuda_fn()
+    if not torch.isfinite(got.float()).all():
+        fail("kernels", f"{full}: non-finite output on a live row")
+    err = _check("kernels", full, got, plain_fn(), dn)
+    again = cuda_fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("kernels", f"{full} {dn}: two launches differ")
+    notes = ["two launches equal"]
+    if envelope is not None:
+        env = (got.float() - envelope[0]().float()).abs().max().item()
+        if env > envelope[1]:
+            fail("kernels", f"{full} {dn}: {env:.4f} from the fp32 oracle, outside {envelope[1]}")
+        notes.append(f"{env:.4f} from the fp32 oracle on the unquantized cache "
+                     f"(envelope {envelope[1]})")
+    if bitwise is not None:
+        wide, plain = bitwise[0](), bitwise[1]()
+        torch.cuda.synchronize()
+        if not torch.equal(wide, plain):
+            fail("kernels", f"{full}: W >= kv_len is not bit-identical to no window")
+        notes.append("W >= kv_len bit-identical to the unwindowed launch")
+    print(f"[kernels] {key:<32} {label:<40} {dn:<8} {'; '.join(notes)}")
+    _record(report, key, label, dn, err, time_ms(torch, cuda_fn, flush),
+            time_ms(torch, plain_fn, flush), time_ms(torch, lib_fn, flush), bnd, main_case)
+
+
 def _paged_pool(torch, randn, kv, dh, page, positions, seed):
     """Page pools (P, page, KV, Dh) with a shuffled block table: row b maps
     the blocks its positions 0..positions[b] touch to distinct pages, the
@@ -402,26 +456,8 @@ def phase_kernel_forms(torch, flush) -> dict:
     c, cpos = 128, 1792
     ki = torch.arange(MAX_LEN, device="cuda")
 
-    def finite(label, out):
-        if not torch.isfinite(out.float()).all():
-            fail("kernels", f"{label}: non-finite output on a live row")
-        return out
-
-    def case(key, label, dn, cuda_fn, plain_fn, lib_fn, bnd, main_case, bitwise=None):
-        """Hold cuda_fn() against plain_fn(); with `bitwise` (a function of
-        the same inputs at W >= kv_len and its unwindowed counterpart) the
-        two must be bit-identical."""
-        err = _check("kernels", f"{key} {label}", finite(f"{key} {label}", cuda_fn()),
-                     plain_fn(), dn)
-        if bitwise is not None:
-            wide, full = bitwise[0](), bitwise[1]()
-            torch.cuda.synchronize()
-            if not torch.equal(wide, full):
-                fail("kernels", f"{key} {label}: W >= kv_len is not bit-identical to no window")
-            print(f"[kernels] {key:<32} {label:<40} {dn:<8} W >= kv_len bit-identical to "
-                  "the unwindowed launch")
-        _record(report, key, label, dn, err, time_ms(torch, cuda_fn, flush),
-                time_ms(torch, plain_fn, flush), time_ms(torch, lib_fn, flush), bnd, main_case)
+    def case(*args, **kw):
+        _flash_case(torch, flush, report, *args, **kw)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
@@ -533,10 +569,11 @@ def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def _model_pair(torch, arch: str, cfg, *, init: bool = True):
-    """Two models of `cfg` on the card, one bound to the CUDA kernels and one
-    to the plain versions; with `init`, the CUDA one drawn from SEED and the
-    plain one loaded with its weights."""
+def _model_pair(torch, arch: str, cfg, *, init: bool = True, kv_quantize: str | None = None):
+    """Two models of `cfg` on the card (with a `kv_quantize` cache), one
+    bound to the CUDA kernels and one to the plain versions; with `init`,
+    the CUDA one drawn from SEED and the plain one loaded with its
+    weights."""
     from repro_torch.core.runtime import Runtime
     from repro_torch.launch.bundle import make_bundle
     from repro_torch.models.model import Model
@@ -547,7 +584,7 @@ def _model_pair(torch, arch: str, cfg, *, init: bool = True):
         bindings.append(runtime.deploy(make_bundle(arch), device="cuda",
                                        native_ops=native).binding)
         runtime.cleanup()
-    m_cuda, m_plain = (Model(cfg, b, device="cuda") for b in bindings)
+    m_cuda, m_plain = (Model(cfg, b, device="cuda", kv_quantize=kv_quantize) for b in bindings)
     if init:
         m_cuda.init(torch.Generator(device="cuda").manual_seed(SEED))
         m_plain.load_params(dict(m_cuda.named_parameters()))
@@ -733,7 +770,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
-            "tokens": [list(r.tokens) for r in reqs]}
+            "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak}
 
 
 def phase_serve(torch) -> dict:
@@ -942,26 +979,225 @@ def phase_kernels_quant(torch, flush) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------- #
+# the quantized KV cache: the flash kernel's quantized-KV form
+# --------------------------------------------------------------------------- #
+def _quantize_rows(torch, x, fmt: str):
+    """Codes of a (B, S, KV, Dh) cache with one amax scale a batch row (as
+    tests/test_quant_conformance.py quantizes its grid), written by the
+    model's cache write `quant_update`: (codes, (B,) float32 scales)."""
+    from repro_torch.kernels.quant import FP8_MAX, INT8_MAX, storage_dtype
+    from repro_torch.models.layers import quant_update
+
+    top = INT8_MAX if fmt == "int8" else FP8_MAX
+    scale = x.float().abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / top
+    return quant_update(x, scale, storage_dtype(fmt)), scale
+
+
+def _code_pools(torch, codes, page, positions, seed):
+    """Page pools (P, page, KV, Dh) of a row-quantized cache's codes with a
+    shuffled block table: row b's blocks up to positions[b] on distinct
+    pages, the rest on the park page 0, which holds POISON's code."""
+    b, s = codes.shape[:2]
+    n = s // page
+    perm = torch.randperm(b * n, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, n).to(torch.int32)
+    pool = torch.empty((1 + b * n, page) + tuple(codes.shape[2:]), dtype=codes.dtype,
+                       device=codes.device)
+    pool[0] = torch.full(tuple(pool.shape[1:]), POISON, device=codes.device).to(codes.dtype)
+    pool[table.reshape(-1).long().cuda()] = codes.reshape(b * n, page, *codes.shape[2:])
+    for row, p in enumerate(positions):
+        table[row, p // page + 1:] = 0
+    return pool, table.cuda()
+
+
+def phase_kernels_kvquant(torch, flush) -> dict:
+    """The flash kernel's quantized-KV form (int8 and e4m3 caches, one fp32
+    scale a batch row) against its plain version at qwen's serve shapes:
+    decode B = 4 at positions 100/700/1600/2047 and chunks of C = 128 at
+    positions 1792 and 1900; contiguous, paged (page 128 and 16, park page
+    poisoned), windowed (W = 512; W >= kv_len bit-identical to no window)
+    and paged + windowed (dead pages parked); q fp32 and bf16.  Each case
+    within TOLS of the plain version, inside ATTN_ENVELOPE of the fp32
+    oracle on the unquantized cache, and two launches bit-identical.  The
+    library yardstick dequantizes the head-expanded codes (built outside
+    its timing) to q's dtype and calls SDPA, the dequantization included in
+    its time.  Returns the main-path cases (bf16; page 128) keyed by form."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_ref import chunk_attention_ref, decode_attention_ref
+
+    cfg = get_config(ARCH)
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    group = h // kv
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    report = {}
+    positions = (100, 700, 1600, MAX_LEN - 1)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    c = 128
+    ki = torch.arange(MAX_LEN, device="cuda")
+
+    def library(qt, kt, vt, ks, vs, mask):
+        def run():
+            kd = (kt.float() * ks.view(-1, 1, 1, 1)).to(qt.dtype)
+            vd = (vt.float() * vs.view(-1, 1, 1, 1)).to(qt.dtype)
+            return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask)
+        return run
+
+    def case(key, label, dn, fmt, cuda_fn, plain_fn, oracle_fn, lib_fn, bnd, main_case,
+             bitwise=None):
+        _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fn, bnd,
+                    main_case, bitwise, (oracle_fn, ATTN_ENVELOPE[fmt]))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        es = torch.empty((), dtype=dtype).element_size()
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        keys = sum(p + 1 for p in positions)
+        wkeys = sum(min(WINDOW, p + 1) for p in positions)
+        dmask = (ki[None, :] <= pos[:, None])[:, None, None]
+        wmask = dmask & (ki[None, :] > (pos - WINDOW)[:, None])[:, None, None]
+        for fmt in ("int8", "fp8"):
+            tag = f"kv_{fmt}"
+            # decode: contiguous, windowed, paged (page 128 and 16), paged + windowed
+            q = randn(4, 1, h, dh)
+            qt = q.transpose(1, 2)
+            k, v = randn(4, MAX_LEN, kv, dh), randn(4, MAX_LEN, kv, dh)
+            (kc, ks), (vc, vs) = _quantize_rows(torch, k, fmt), _quantize_rows(torch, v, fmt)
+            kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2) for x in (kc, vc))
+            sb = 2 * 4 * 4                                        # the two scale rows
+            case(f"decode_attention/{tag}", f"B=4 Smax={MAX_LEN}", dn, fmt,
+                 lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, None, ks, vs),
+                 lambda: decode_attention_ref(q, kc, vc, pos, None, None, ks, vs),
+                 lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos),
+                 library(qt, kt, vt, ks, vs, dmask),
+                 attn_bound(4, 1, h, kv, dh, keys, keys, es, dn, sb, kv_esize=1),
+                 dn == "bfloat16")
+            case(f"decode_attention/{tag}+windowed", f"B=4 W={WINDOW} Smax={MAX_LEN}", dn, fmt,
+                 lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, WINDOW, ks, vs),
+                 lambda: decode_attention_ref(q, kc, vc, pos, None, WINDOW, ks, vs),
+                 lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos, None,
+                                              WINDOW),
+                 library(qt, kt, vt, ks, vs, wmask),
+                 attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn, sb, kv_esize=1),
+                 dn == "bfloat16",
+                 bitwise=(lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, 2 * MAX_LEN,
+                                                             ks, vs),
+                          lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, None, ks,
+                                                             vs)))
+            del kt, vt
+            for page in (128, 16):
+                pk, table = _code_pools(torch, kc, page, positions, SEED + page)
+                pv, _ = _code_pools(torch, vc, page, positions, SEED + page)
+                kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
+                tb = table.numel() * 4 + sb
+                case(f"decode_attention/{tag}+paged", f"B=4 page={page} P={pk.shape[0]}", dn,
+                     fmt, lambda: ops._cuda_decode_attention(q, pk, pv, pos, table, None, ks, vs),
+                     lambda: decode_attention_ref(q, pk, pv, pos, table, None, ks, vs),
+                     lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos),
+                     library(qt, kt, vt, ks, vs, dmask),
+                     attn_bound(4, 1, h, kv, dh, keys, keys, es, dn, tb, kv_esize=1),
+                     dn == "bfloat16" and page == 128)
+                wt = table.clone()
+                for b, p in enumerate(positions):
+                    wt[b, :max(0, p - WINDOW) // page] = 0
+                case(f"decode_attention/{tag}+paged+windowed",
+                     f"B=4 page={page} W={WINDOW} dead parked", dn, fmt,
+                     lambda: ops._cuda_decode_attention(q, pk, pv, pos, wt, WINDOW, ks, vs),
+                     lambda: decode_attention_ref(q, pk, pv, pos, wt, WINDOW, ks, vs),
+                     lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos, None,
+                                                  WINDOW),
+                     library(qt, kt, vt, ks, vs, wmask),
+                     attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn, tb, kv_esize=1),
+                     dn == "bfloat16" and page == 128)
+                del pk, pv, kt, vt
+            del q, k, v, kc, vc
+
+            # chunk C = 128: contiguous at 1792 and 1900; at 1792 paged, windowed,
+            # paged + windowed with the dead blocks parked
+            q = randn(1, c, h, dh)
+            qt = q.transpose(1, 2)
+            k, v = randn(1, MAX_LEN, kv, dh), randn(1, MAX_LEN, kv, dh)
+            (kc, ks), (vc, vs) = _quantize_rows(torch, k, fmt), _quantize_rows(torch, v, fmt)
+            kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2) for x in (kc, vc))
+            sb = 2 * 4
+            for cpos in (1792, 1900):
+                lim = cpos + torch.arange(c, device="cuda")[:, None]
+                cmask = (ki[None, :] <= lim)[None, None]
+                pairs = c * cpos + c * (c + 1) // 2
+                case(f"chunk_attention/{tag}", f"C={c} pos={cpos} Smax={MAX_LEN}", dn, fmt,
+                     lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, None, ks, vs),
+                     lambda: chunk_attention_ref(q, kc, vc, cpos, None, None, ks, vs),
+                     lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos),
+                     library(qt, kt, vt, ks, vs, cmask),
+                     attn_bound(1, c, h, kv, dh, cpos + c, pairs, es, dn, sb, kv_esize=1),
+                     dn == "bfloat16" and cpos == 1900)
+            cpos = 1792
+            lim = cpos + torch.arange(c, device="cuda")[:, None]
+            cmask = (ki[None, :] <= lim)[None, None]
+            cwmask = cmask & (ki[None, :] > lim - WINDOW)[None, None]
+            pairs = c * cpos + c * (c + 1) // 2
+            wpairs = sum(min(WINDOW, cpos + i + 1) for i in range(c))
+            wrows = cpos + c - max(0, cpos - WINDOW + 1)
+            case(f"chunk_attention/{tag}+windowed", f"C={c} pos={cpos} W={WINDOW}", dn, fmt,
+                 lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, WINDOW, ks, vs),
+                 lambda: chunk_attention_ref(q, kc, vc, cpos, None, WINDOW, ks, vs),
+                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos, None,
+                                             WINDOW),
+                 library(qt, kt, vt, ks, vs, cwmask),
+                 attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn, sb, kv_esize=1),
+                 dn == "bfloat16",
+                 bitwise=(lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, 2 * MAX_LEN,
+                                                            ks, vs),
+                          lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, None, ks,
+                                                            vs)))
+            del kt, vt
+            pk, table = _code_pools(torch, kc, 128, (cpos + c - 1,), SEED + 3)
+            pv, _ = _code_pools(torch, vc, 128, (cpos + c - 1,), SEED + 3)
+            kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
+            tb = table.numel() * 4 + sb
+            case(f"chunk_attention/{tag}+paged", f"C={c} pos={cpos} page=128", dn, fmt,
+                 lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table, None, ks, vs),
+                 lambda: chunk_attention_ref(q, pk, pv, cpos, table, None, ks, vs),
+                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos),
+                 library(qt, kt, vt, ks, vs, cmask),
+                 attn_bound(1, c, h, kv, dh, cpos + c, pairs, es, dn, tb, kv_esize=1),
+                 dn == "bfloat16")
+            wt = table.clone()
+            wt[0, :max(0, cpos - WINDOW) // 128] = 0
+            case(f"chunk_attention/{tag}+paged+windowed",
+                 f"C={c} pos={cpos} W={WINDOW} dead parked", dn, fmt,
+                 lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, wt, WINDOW, ks, vs),
+                 lambda: chunk_attention_ref(q, pk, pv, cpos, wt, WINDOW, ks, vs),
+                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos, None,
+                                             WINDOW),
+                 library(qt, kt, vt, ks, vs, cwmask),
+                 attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn, tb, kv_esize=1),
+                 dn == "bfloat16",
+                 bitwise=(lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table,
+                                                            2 * MAX_LEN, ks, vs),
+                          lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table, None, ks,
+                                                            vs)))
+            del q, k, v, kc, vc, pk, pv, kt, vt
+    return report
+
+
 def _quantized_tree(torch, cfg, fmt: str) -> dict:
     """The seeded weights of `cfg` (the draws `Model.init` makes with the
     serve phase's seed, so run A's weights for qwen) drawn on the card one
-    leaf at a time and quantized there by the port's `quantize_tree`, each
-    leaf's full-precision draw freed once it is quantized: the peak is the
-    codes plus one leaf, not the full-precision tree plus the codes."""
-    from repro_torch.checkpoint.manifest import quantize_tree
+    leaf at a time and quantized there by the port's `quantize_tree`
+    (`Model.draw`), each leaf's full-precision draw freed once it is
+    quantized: the peak is the codes plus one leaf, not the full-precision
+    tree plus the codes."""
     from repro_torch.models.model import Model
-    from repro_torch.models.schema import leaf_items, torch_dtype
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    tree = {}
-    for path, spec in leaf_items(Model(cfg, {}, device="meta").schema()):
-        *parents, name = path.split("/")
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[name] = quantize_tree({path: spec.materialize(gen, torch_dtype(cfg.dtype))},
-                                   fmt)[path]
-    return tree
+    return Model(cfg, {}, device="cuda").draw(torch.Generator(device="cuda").manual_seed(SEED),
+                                              fmt)
 
 
 def _departure(torch, label: str, m_cuda, m_plain, tokens) -> None:
@@ -1023,7 +1259,9 @@ def phase_model_quant(torch) -> None:
     """qwen2.5-14b at full width, 2 layers, fp32, weights in storage form
     (int8, then fp8): the CUDA binding's logits against the plain binding's
     for prefill, prefill_into with a partial last chunk and decode with a
-    parked slot, and the whole-prompt prefill against the chunked one."""
+    parked slot, and the whole-prompt prefill against the chunked one; then
+    prefill_into and decode again over a KV cache of the weights' format
+    (the flash kernel's quantized-KV form)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1056,17 +1294,79 @@ def phase_model_quant(torch) -> None:
         pos = np.array([5, len(prompt), max_len - 1], np.int32)
         out = {m: m.decode(token, caches[m], pos)[0] for m in caches}
         compare(f"{fmt} decode pos [5, 300, 511 parked]", out[m_cuda], out[m_plain])
-        del state, m_cuda, m_plain, caches, out, whole
+        k_cuda, k_plain = _model_pair(torch, ARCH, cfg, init=False, kv_quantize=fmt)
+        k_cuda.load_params(state)
+        k_plain.load_params(state)
+        kcaches = {m: m.init_cache(slots, max_len) for m in (k_cuda, k_plain)}
+        _, _, out = _prefill_chunks(np, kcaches, prompt, slot, chunk)[-1]
+        compare(f"{fmt} KV: prefill_into slot {slot}, 300 = 128+128+44", out[k_cuda],
+                out[k_plain])
+        out = {m: m.decode(token, kcaches[m], pos)[0] for m in kcaches}
+        compare(f"{fmt} KV: decode pos [5, 300, 511 parked]", out[k_cuda], out[k_plain])
+        apart = sum(int((kcaches[k_cuda]["p0"][name].view(torch.uint8)
+                         != kcaches[k_plain]["p0"][name].view(torch.uint8)).sum())
+                    for name in ("k", "v"))
+        print(f"[quant-model] {fmt} KV: {apart} of {2 * kcaches[k_cuda]['p0']['k'].numel()} "
+              "codes differ between the CUDA and plain models' caches (informational)")
+        del state, m_cuda, m_plain, caches, out, whole, k_cuda, k_plain, kcaches
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _clip_share(torch, cache, fmt: str) -> tuple[float, float]:
+    """The share of K and of V codes at the clip (+-127 / +-448) among the
+    positions a run wrote: a position (a cache row or a pool page's row)
+    counts as written when any of its codes is not zero (the cache starts
+    at zero); one layer at a time in float32."""
+    top = 127.0 if fmt == "int8" else 448.0
+    shares = []
+    for name in ("k", "v"):
+        at = written = 0
+        for layer in cache["p0"][name]:
+            x = layer.float().abs()
+            at += int((x == top).sum())
+            written += int((x != 0).flatten(-2).any(-1).sum()) * x.shape[-2] * x.shape[-1]
+        shares.append(at / max(written, 1))
+    return shares[0], shares[1]
+
+
+def _drive_kv(torch, np, cfg, container, label, fmt, tree, **engine_kw) -> dict:
+    """A run with `quantize=fmt` (weights in storage form, KV cache of the
+    same format) on `tree`: the cache must hold 1-byte codes; prints the
+    share of codes at the clip, then the attention launches a step and the
+    peak memory."""
+    from repro_torch.models.model import KV_CALIBRATION_AMAX
+
+    run = _drive(torch, np, cfg, container, label, params=tree, quantize=fmt, **engine_kw)
+    eng = run.pop("server").engine
+    k = eng.cache["p0"]["k"]
+    if k.dtype != {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[fmt] or k.element_size() != 1:
+        fail("quant-serve", f"{label}: a KV cache of {k.dtype}, not 1-byte {fmt} codes")
+    ks, vs = _clip_share(torch, eng.cache, fmt)
+    print(f"[quant-serve] {label}: K codes at the clip {ks:.6g}, V codes {vs:.6g} of the "
+          f"written positions' codes (every slot's scale {eng.model.kv_scale_init:.6g}: the "
+          f"calibration amax {KV_CALIBRATION_AMAX} over the format's top; informational)")
+    (pre, dec), launches = run["steps"], run["launches"]
+    print(f"[quant-serve] {label}: {k.dtype} KV cache of {k.numel() * 2} bytes (k and v); "
+          f"chunk_attention {launches['chunk_attention'] / pre:g} a prefill step, "
+          f"decode_attention {launches['decode_attention'] / dec:g} a decode step; peak "
+          f"memory {run['peak']} bytes")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
 
 
 def phase_serve_quant(torch, contiguous: dict) -> dict:
     """Full qwen2.5-14b (48 layers, bf16) with its matmul weights in storage
     form, drawn from run A's seed and quantized on the card: run Q8 (int8,
     contiguous) with one whole-prompt Model.prefill, run Q8P (int8, paged
-    on 25 pages; its tokens must equal Q8's) and run QF8 (fp8, contiguous).
-    Every step launches quant_matmul exactly 3 x 48 + 1 times."""
+    on 25 pages; its tokens must equal Q8's), then on the same int8 tree
+    served with quantize="int8", so that the KV cache is int8 too, run K8
+    (contiguous) and K8P (paged on 25 pages; its tokens must equal K8's);
+    on the fp8 tree run QF8 (contiguous) and KF8 (quantize="fp8",
+    contiguous).  Every step launches quant_matmul exactly 3 x 48 + 1
+    times."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1114,7 +1414,6 @@ def phase_serve_quant(torch, contiguous: dict) -> dict:
     q8p = _drive(torch, np, cfg, container, "Q8P int8, paged, 25 pages", params=tree,
                  paged=True, num_pages=25)
     q8p.pop("server")
-    del tree
     gc.collect()
     torch.cuda.empty_cache()
     first_a = sum(a[0] == b[0] for a, b in zip(q8["tokens"], contiguous["tokens"]))
@@ -1125,13 +1424,33 @@ def phase_serve_quant(torch, contiguous: dict) -> dict:
         fail("quant-serve", "Q8P allocated more than its 24 pages")
     if q8p["tokens"] != q8["tokens"]:
         fail("quant-serve", "Q8P (paged) tokens differ from Q8's (contiguous)")
-    tree = _quantized_tree(torch, cfg, "fp8")
-    qf8 = _drive(torch, np, cfg, container, "QF8 fp8, contiguous", params=tree)
-    qf8.pop("server")
+    k8 = _drive_kv(torch, np, cfg, container, "K8 int8 weights and KV cache, contiguous", "int8",
+                   tree)
+    k8p = _drive_kv(torch, np, cfg, container, "K8P int8 weights and KV cache, paged, 25 pages",
+                    "int8", tree, paged=True, num_pages=25)
     del tree
     gc.collect()
     torch.cuda.empty_cache()
-    runs.update(Q8=q8, Q8P=q8p, QF8=qf8)
+    same = sum(a == b for ka, qa in zip(k8["tokens"], q8["tokens"]) for a, b in zip(ka, qa))
+    first = sum(a[0] == b[0] for a, b in zip(k8["tokens"], q8["tokens"]))
+    print(f"[quant-serve] K8P: pages-allocated-peak "
+          f"{int(k8p['stats']['pages-allocated-peak'])} (limit 24); tokens equal to K8's: "
+          f"{k8p['tokens'] == k8['tokens']}; K8 against Q8 (the same weights over a bf16 "
+          f"cache): first tokens equal {first} of 8, tokens equal at the same place {same} of "
+          f"{sum(map(len, q8['tokens']))} (informational)")
+    if k8p["stats"]["pages-allocated-peak"] > 24:
+        fail("quant-serve", "K8P allocated more than its 24 pages")
+    if k8p["tokens"] != k8["tokens"]:
+        fail("quant-serve", "K8P (paged) tokens differ from K8's (contiguous)")
+    tree = _quantized_tree(torch, cfg, "fp8")
+    qf8 = _drive(torch, np, cfg, container, "QF8 fp8, contiguous", params=tree)
+    qf8.pop("server")
+    kf8 = _drive_kv(torch, np, cfg, container, "KF8 fp8 weights and KV cache, contiguous", "fp8",
+                    tree)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(Q8=q8, Q8P=q8p, QF8=qf8, K8=k8, K8P=k8p, KF8=kf8)
     runtime.cleanup()
     return runs
 
@@ -1629,6 +1948,7 @@ def main() -> int:
     cases.update(phase_kernel_forms(torch, flush))
     cases.update(phase_kernels_moe(torch, flush))
     cases.update(phase_kernels_quant(torch, flush))
+    cases.update(phase_kernels_kvquant(torch, flush))
     cases.update(phase_kernels_ssd(torch, flush))
     del flush
     phase_model(torch)
@@ -1668,8 +1988,11 @@ def main() -> int:
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
                 ("moe_gmm", moe["M"], "moe_gmm"),
-                ("quant_matmul", quant["Q8"], "quant_matmul"),
-                ("ssd_scan", ssm["S"], "ssd_scan"),
+                ("quant_matmul", quant["Q8"], "quant_matmul")]
+    for run, form in (("K8", "kv_int8"), ("K8P", "kv_int8+paged"), ("KF8", "kv_fp8")):
+        for op in ("chunk_attention", "decode_attention"):
+            entries.append((f"{op}/{form}", quant[run], op))
+    entries += [("ssd_scan", ssm["S"], "ssd_scan"),
                 ("ssd_scan/whole_prompt", {"launches": ssm["prefill"]}, "ssd_scan")]
     kernels = []
     for key, run, op in entries:

@@ -23,7 +23,7 @@ from repro_torch.kernels.quant import RAW_BITS
 from repro_torch.models.model import Model, flatten_params, tree_items
 from repro_torch.models.schema import leaf_items
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "torch_tree"]
 
 
 def _to_torch(arr: Any) -> torch.Tensor:
@@ -34,6 +34,14 @@ def _to_torch(arr: Any) -> torch.Tensor:
         bits, dtype = RAW_BITS[a.dtype.name]
         return torch.from_numpy(a.view(bits).copy()).view(dtype)
     return torch.from_numpy(a.copy())
+
+
+def torch_tree(tree: Any) -> Any:
+    """A nested tree of numpy arrays (or torch tensors) as torch tensors
+    with the same bits (bfloat16 and float8 through their raw bits)."""
+    if isinstance(tree, Mapping):
+        return {k: torch_tree(v) for k, v in tree.items()}
+    return _to_torch(tree)
 
 
 def _nest(flat: Mapping[str, torch.Tensor]) -> dict:

@@ -24,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "library", "check", "check_layout", "dtype_code", "stream_of"]
+__all__ = ["CODE_FORMATS", "LAUNCHES", "library", "check", "check_layout", "dtype_code",
+           "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "binding.cpp", CSRC / "rmsnorm.cu", CSRC / "flash_attention.cu",
@@ -36,6 +37,8 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the 1-byte code formats of quantized weights and KV caches (common.cuh)
+CODE_FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -60,7 +63,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_rmsnorm.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     lib.repro_rmsnorm.restype = i
-    lib.repro_flash_attention.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, p,
+    lib.repro_flash_attention.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p, p, p,
                                           i, i, i, i, i, f, i, i, p]
     lib.repro_flash_attention.restype = i
     lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p]

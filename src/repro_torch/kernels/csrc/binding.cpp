@@ -11,10 +11,11 @@
 int repro_rmsnorm_launch(int dtype, const void* x, const void* w, void* y, long long rows,
                          int d, float eps, void* stream);
 
-int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k,
+int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
                                  const int* block_tables, int nblocks, int page, int num_pages,
-                                 const int* win_start, int b, int sq, int sk, int h, int kv,
+                                 const int* win_start, const float* k_scale,
+                                 const float* v_scale, int b, int sq, int sk, int h, int kv,
                                  float scale, int causal, int static_diag, void* stream);
 
 int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
@@ -38,16 +39,19 @@ int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long ro
   return repro_rmsnorm_launch(dtype, x, w, y, rows, d, eps, stream);
 }
 
-// block_tables and win_start may be null (contiguous KV, no window).
-int repro_flash_attention(int dtype, int dh, const void* q, const void* k, const void* v,
-                          void* o, const void* kv_len, const void* q_start,
+// block_tables, win_start and the scales may be null (contiguous KV, no
+// window, a full-precision cache); `code` is read only with the scales.
+int repro_flash_attention(int dtype, int code, int dh, const void* q, const void* k,
+                          const void* v, void* o, const void* kv_len, const void* q_start,
                           const void* block_tables, int nblocks, int page, int num_pages,
-                          const void* win_start, int b, int sq, int sk, int h, int kv,
-                          float scale, int causal, int static_diag, void* stream) {
+                          const void* win_start, const void* k_scale, const void* v_scale,
+                          int b, int sq, int sk, int h, int kv, float scale, int causal,
+                          int static_diag, void* stream) {
   return repro_flash_attention_launch(
-      dtype, dh, q, k, v, o, static_cast<const int*>(kv_len), static_cast<const int*>(q_start),
-      static_cast<const int*>(block_tables), nblocks, page, num_pages,
-      static_cast<const int*>(win_start), b, sq, sk, h, kv, scale, causal, static_diag, stream);
+      dtype, code, dh, q, k, v, o, static_cast<const int*>(kv_len),
+      static_cast<const int*>(q_start), static_cast<const int*>(block_tables), nblocks, page,
+      num_pages, static_cast<const int*>(win_start), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), b, sq, sk, h, kv, scale, causal, static_diag, stream);
 }
 
 int repro_moe_gmm(int dtype, const void* x, const void* w, const void* group_sizes, void* out,

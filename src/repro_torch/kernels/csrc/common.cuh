@@ -1,19 +1,28 @@
 // Shared helpers for the port's CUDA kernels.
 //
 // The kernels read and write either float32 or bfloat16 and do all their
-// arithmetic in float32, as the Pallas kernels they replace do.  Only the
-// conversion intrinsics are used, so the sources compile under PyTorch's
-// extension flags (-D__CUDA_NO_BFLOAT16_CONVERSIONS__ and friends).
+// arithmetic in float32, as the Pallas kernels they replace do; quantized
+// weights and KV caches are 1-byte int8 or e4m3 codes, converted to float32
+// exactly.  Only the conversion intrinsics are used, so the sources compile
+// under PyTorch's extension flags (-D__CUDA_NO_BFLOAT16_CONVERSIONS__ and
+// friends).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
 // dtype codes shared with the Python wrappers (kernels/_build.py)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+
+// 1-byte code formats shared with the Python wrappers (quant_matmul.py,
+// flash_attention.py)
+constexpr int kCodeInt8 = 0;
+constexpr int kCodeE4M3 = 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -59,6 +68,55 @@ struct VecLoad<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+};
+
+__device__ __forceinline__ float half_bits_to_float(unsigned short h) {
+  float f;
+  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(h));
+  return f;
+}
+
+// 4 int8 codes of one 32-bit word (lowest byte first) to fp32, exactly.
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* out) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = static_cast<float>(static_cast<int8_t>(w >> (8 * j)));
+}
+
+// 4 e4m3 codes of one 32-bit word (lowest byte first) to fp32, exactly:
+// every e4m3 value is a half, and every half a float.
+__device__ __forceinline__ void e4m3x4_to_float(uint32_t w, float* out) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * j)), __NV_E4M3);  // low byte -> .x
+    out[2 * j] = half_bits_to_float(h.x);
+    out[2 * j + 1] = half_bits_to_float(h.y);
+  }
+}
+
+// 16 one-byte codes a vector.
+template <>
+struct VecLoad<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    int8x4_to_float(u.x, out);
+    int8x4_to_float(u.y, out + 4);
+    int8x4_to_float(u.z, out + 8);
+    int8x4_to_float(u.w, out + 12);
+  }
+};
+
+template <>
+struct VecLoad<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const __nv_fp8_e4m3* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    e4m3x4_to_float(u.x, out);
+    e4m3x4_to_float(u.y, out + 4);
+    e4m3x4_to_float(u.z, out + 8);
+    e4m3x4_to_float(u.w, out + 12);
   }
 };
 

@@ -1,9 +1,11 @@
-// GQA flash attention with an online softmax, full-precision KV, over a
-// contiguous cache or a paged one, with an optional sliding window.
+// GQA flash attention with an online softmax, over a full-precision or an
+// int8 / e4m3 quantized KV cache, contiguous or paged, with an optional
+// sliding window.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel) in its contiguous and paged
-// (block_tables), full and windowed (window), unquantized forms.  On the
+// (block_tables), full and windowed (window), full-precision and
+// quantized-KV (k_scale / v_scale) forms.  On the
 // TPU the grid's minor kv axis runs in order on one core and carries
 // (m, l, acc) in VMEM scratch; on Hopper the blocks run in parallel in no
 // order, so one thread block owns one (batch, head, q-block) and walks the
@@ -42,6 +44,16 @@
 // its own instance and the contiguous, unwindowed one runs the plain
 // loop: no row-offset table, no window test.
 //
+// Quantized KV: the K/V element type is a template parameter beside them
+// (KV = T is the full-precision cache).  With KV int8 or e4m3 the tile
+// loader reads 16 one-byte codes a thread, converts them to fp32 exactly
+// and multiplies them by the batch row's fp32 k_scale[b] / v_scale[b]
+// before staging, as the Pallas kernel upcasts its VMEM tile and
+// multiplies by the scale from its meta rows; everything after the stage
+// is the full-precision kernel's fp32 arithmetic.  The cache streams from
+// device memory at 1 byte an element: decode's byte bound halves against
+// bf16.
+//
 // Layout of one block: BQ query rows of TPR threads each, 256 threads —
 // 64 rows of 4 for prefill and chunks, 16 rows of 16 for decode-sized
 // launches (Sq <= 16), so a decode block still has 256 threads to stream
@@ -56,10 +68,12 @@
 // Bound on the H100: prefill and chunked prefill at Dh = 128 do ~2 * Dh
 // operations per key byte and are compute-bound once the products run on
 // the tensor cores; decode (one query per row) is bound by reading the
-// KV cache, B * min(W, kv_len) * KV * Dh * 2 * sizeof(T) bytes.  This
+// KV cache, B * min(W, kv_len) * KV * Dh * 2 * sizeof(KV) bytes.  This
 // version uses plain fp32 FMAs (no wgmma/TMA) and is far from either
 // bound; decode wastes the 15 spare rows of its 16-row query block, and
 // each of a GQA group's heads reads the group's K/V again.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -76,6 +90,8 @@ struct Params {
   const int* q_start;       // (B,)
   const int* block_tables;  // (B, nblocks) physical pages (paged instances)
   const int* win_start;     // (B,) window start rows (windowed instances)
+  const float* k_scale;     // (B,) fp32 scales (quantized instances)
+  const float* v_scale;
   int sq, sk, h, kv, group; // sk: logical key extent (nblocks * page when paged)
   int page, num_pages, nblocks;
   float scale;
@@ -100,18 +116,21 @@ __device__ __forceinline__ long long paged_row(const Params& p, const int* tbl, 
 }
 
 // BQ query rows per block, TPR threads per row (BQ * TPR = 256 threads).
-// PAGED: k/v are page pools read through the row-offset table; WINDOWED:
-// keys below q_pos + ws are masked and tiles below the block's lowest
-// window start are skipped.  The bound of two blocks an SM (what the
+// KV: the cache's element type, T or a 1-byte code (then dequantized with
+// the row's scales); PAGED: k/v are page pools read through the row-offset
+// table; WINDOWED: keys below q_pos + ws are masked and tiles below the
+// block's lowest window start are skipped.  The bound of two blocks an SM (what the
 // 64-row layout's shared memory allows) lets ptxas spend up to 128
 // registers a thread; without it ptxas picks 56-92 and the 64-row chunk
 // and the decode run 13% slower (PERF.md).
-template <typename T, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
+template <typename T, typename KV, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
 __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
+  constexpr bool QUANT = !std::is_same<T, KV>::value;
   constexpr int NT = BQ * TPR;
   constexpr int NS = kBK / TPR;    // scores per thread per key tile
   constexpr int ND = DH / TPR;     // output columns per thread
-  constexpr int VN = repro::VecLoad<T>::N;
+  constexpr int VN = repro::VecLoad<T>::N;    // q elements a vector
+  constexpr int VK = repro::VecLoad<KV>::N;   // k/v elements a vector
   static_assert(NT >= kBK, "one thread per key row builds the row-offset table");
   extern __shared__ float smem[];
   float* q_s = smem;                         // [BQ][DH + 1]
@@ -120,8 +139,8 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   __shared__ long long row_off[PAGED ? kBK : 1];  // the next tile's pool rows (paged_row)
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
-  const T* __restrict__ k = static_cast<const T*>(p.k);
-  const T* __restrict__ v = static_cast<const T*>(p.v);
+  const KV* __restrict__ k = static_cast<const KV*>(p.k);
+  const KV* __restrict__ v = static_cast<const KV*>(p.v);
   const int sq = p.sq, sk = p.sk, h = p.h;
   const int tid = threadIdx.x;
   const int r = tid / TPR;                   // query row within the block
@@ -138,6 +157,11 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   // keys below the block's lowest window start are dead for all its rows
   const int klo = WINDOWED ? q0 + ws : 0;
   const int* tbl = PAGED ? p.block_tables + static_cast<long long>(bi) * p.nblocks : nullptr;
+  float ksc = 1.f, vsc = 1.f;
+  if constexpr (QUANT) {
+    ksc = p.k_scale[bi];
+    vsc = p.v_scale[bi];
+  }
 
   for (int idx = tid; idx < BQ * DH / VN; idx += NT) {
     const int e = idx * VN;
@@ -172,13 +196,13 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   for (int kb = kb0; kb < nkb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();  // Q and row offsets stored / previous tile consumed
-    for (int idx = tid; idx < kBK * DH / VN; idx += NT) {
-      const int e = idx * VN;
+    for (int idx = tid; idx < kBK * DH / VK; idx += NT) {
+      const int e = idx * VK;
       const int jj = e / DH, dd = e % DH;
       const int krow = k0 + jj;
-      float kvals[VN], vvals[VN];
+      float kvals[VK], vvals[VK];
 #pragma unroll
-      for (int j = 0; j < VN; ++j) kvals[j] = vvals[j] = 0.f;
+      for (int j = 0; j < VK; ++j) kvals[j] = vvals[j] = 0.f;
       long long ro;
       bool live;
       if constexpr (PAGED) {
@@ -190,13 +214,14 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
       }
       if (live) {
         const long long off = (ro + kvh) * DH + dd;
-        repro::VecLoad<T>::load(k + off, kvals);
-        if (krow < kvl) repro::VecLoad<T>::load(v + off, vvals);  // rows past kv_len stay 0
+        repro::VecLoad<KV>::load(k + off, kvals);
+        if (krow < kvl) repro::VecLoad<KV>::load(v + off, vvals);  // rows past kv_len stay 0
       }
 #pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        k_s[jj * (DH + 1) + dd + j] = kvals[j];
-        v_s[jj * DH + dd + j] = vvals[j];
+      for (int j = 0; j < VK; ++j) {
+        // the dequantization: code (exact in fp32) times the row's scale
+        k_s[jj * (DH + 1) + dd + j] = QUANT ? kvals[j] * ksc : kvals[j];
+        v_s[jj * DH + dd + j] = QUANT ? vvals[j] * vsc : vvals[j];
       }
     }
     __syncthreads();
@@ -263,10 +288,10 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   }
 }
 
-template <typename T, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
+template <typename T, typename KV, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
 int launch(const Params& p, int b, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH, BQ>();
-  auto kernel = &flash_kernel<T, DH, BQ, TPR, PAGED, WINDOWED>;
+  auto kernel = &flash_kernel<T, KV, DH, BQ, TPR, PAGED, WINDOWED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -275,29 +300,43 @@ int launch(const Params& p, int b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH, int BQ, int TPR>
+template <typename T, typename KV, int DH, int BQ, int TPR>
 int launch_form(const Params& p, int b, cudaStream_t stream) {
   const bool paged = p.block_tables != nullptr, windowed = p.win_start != nullptr;
-  if (paged && windowed) return launch<T, DH, BQ, TPR, true, true>(p, b, stream);
-  if (paged) return launch<T, DH, BQ, TPR, true, false>(p, b, stream);
-  if (windowed) return launch<T, DH, BQ, TPR, false, true>(p, b, stream);
-  return launch<T, DH, BQ, TPR, false, false>(p, b, stream);
+  if (paged && windowed) return launch<T, KV, DH, BQ, TPR, true, true>(p, b, stream);
+  if (paged) return launch<T, KV, DH, BQ, TPR, true, false>(p, b, stream);
+  if (windowed) return launch<T, KV, DH, BQ, TPR, false, true>(p, b, stream);
+  return launch<T, KV, DH, BQ, TPR, false, false>(p, b, stream);
 }
 
-template <typename T, int DH>
+template <typename T, typename KV, int DH>
 int launch_rows(const Params& p, int b, cudaStream_t stream) {
   // decode-sized launches: 16 rows of 16 threads; otherwise 64 rows of 4
-  if (p.sq <= 16) return launch_form<T, DH, 16, 16>(p, b, stream);
-  return launch_form<T, DH, 64, 4>(p, b, stream);
+  if (p.sq <= 16) return launch_form<T, KV, DH, 16, 16>(p, b, stream);
+  return launch_form<T, KV, DH, 64, 4>(p, b, stream);
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch_dh(int dh, const Params& p, int b, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_rows<T, 64>(p, b, stream);
+      return launch_rows<T, KV, 64>(p, b, stream);
     case 128:
-      return launch_rows<T, 128>(p, b, stream);
+      return launch_rows<T, KV, 128>(p, b, stream);
+    default:
+      return -1;
+  }
+}
+
+// The cache's element type: q's own without scales, else the code format.
+template <typename T>
+int launch_kv(int code, int dh, const Params& p, int b, cudaStream_t stream) {
+  if (p.k_scale == nullptr) return launch_dh<T, T>(dh, p, b, stream);
+  switch (code) {
+    case repro::kCodeInt8:
+      return launch_dh<T, int8_t>(dh, p, b, stream);
+    case repro::kCodeE4M3:
+      return launch_dh<T, __nv_fp8_e4m3>(dh, p, b, stream);
     default:
       return -1;
   }
@@ -308,25 +347,30 @@ int launch_dh(int dh, const Params& p, int b, cudaStream_t stream) {
 // q (B, Sq, H, Dh) and o (B, Sq, H, Dh) contiguous; k/v contiguous, either
 // (B, Sk, KV, Dh) with block_tables null, or paged pools (P, page, KV, Dh)
 // with block_tables a (B, nblocks) int32 table on the device and
-// Sk = nblocks * page the logical extent.  kv_len, q_start and (when not
-// null) win_start are (B,) int32 on the device; q, k, v and o are 16-byte
-// aligned.  Launches on `stream`; returns the cudaError_t of the launch
-// (0 = ok) or -1 for an unsupported dtype code or head_dim.
-int repro_flash_attention_launch(int dtype, int dh, const void* q, const void* k,
+// Sk = nblocks * page the logical extent.  k/v are of q's dtype with
+// k_scale and v_scale null, or 1-byte codes of format `code` (int8 0,
+// e4m3 1) with k_scale and v_scale (B,) float32 on the device.  kv_len,
+// q_start and (when not null) win_start are (B,) int32 on the device; q,
+// k, v and o are 16-byte aligned.  Launches on `stream`; returns the
+// cudaError_t of the launch (0 = ok) or -1 for an unsupported dtype, code
+// format or head_dim.
+int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
                                  const int* block_tables, int nblocks, int page, int num_pages,
-                                 const int* win_start, int b, int sq, int sk, int h, int kv,
+                                 const int* win_start, const float* k_scale,
+                                 const float* v_scale, int b, int sq, int sk, int h, int kv,
                                  float scale, int causal, int static_diag, void* stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
-  const Params p{q,  k,  v,      o,    kv_len,    q_start, block_tables, win_start,
-                 sq, sk, h,      kv,   h / kv,    page,    num_pages,    nblocks,
-                 scale,  causal, static_diag};
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return -1;
+  const Params p{q,       k,       v,  o,  kv_len, q_start, block_tables, win_start,
+                 k_scale, v_scale, sq, sk, h,      kv,      h / kv,       page,
+                 num_pages, nblocks, scale, causal, static_diag};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch_dh<float>(dh, p, b, s);
+      return launch_kv<float>(code, dh, p, b, s);
     case repro::kBFloat16:
-      return launch_dh<__nv_bfloat16>(dh, p, b, s);
+      return launch_kv<__nv_bfloat16>(code, dh, p, b, s);
     default:
       return -1;
   }

@@ -61,31 +61,18 @@ constexpr int kCodesPerVec = 16;
 struct Int8 {};
 struct E4M3 {};
 
-__device__ __forceinline__ float half_bits_to_float(unsigned short h) {
-  float f;
-  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(h));
-  return f;
-}
-
 // 4 codes of one 32-bit word (lowest byte first) to fp32, exactly.
 template <typename Q>
 __device__ __forceinline__ void word_to_float(uint32_t w, float* out);
 
 template <>
 __device__ __forceinline__ void word_to_float<Int8>(uint32_t w, float* out) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[j] = static_cast<float>(static_cast<int8_t>(w >> (8 * j)));
+  repro::int8x4_to_float(w, out);
 }
 
 template <>
 __device__ __forceinline__ void word_to_float<E4M3>(uint32_t w, float* out) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w >> (16 * j)), __NV_E4M3);  // low byte -> .x
-    out[2 * j] = half_bits_to_float(h.x);
-    out[2 * j + 1] = half_bits_to_float(h.y);
-  }
+  repro::e4m3x4_to_float(w, out);
 }
 
 // 16 codes of one raw vector to fp32.
@@ -417,9 +404,9 @@ int launch(const void* x, const void* q, const float* scale, void* out, float* w
 template <typename T>
 int occupancy_codes(int code, long long t, int* resident) {
   switch (code) {
-    case 0:
+    case repro::kCodeInt8:
       return occupancy<T, Int8>(t, resident);
-    case 1:
+    case repro::kCodeE4M3:
       return occupancy<T, E4M3>(t, resident);
     default:
       return -1;
@@ -431,9 +418,9 @@ int launch_codes(int code, const void* x, const void* q, const float* scale, voi
                  float* ws, long long t, int d, int f, int splits, int kchunk,
                  cudaStream_t stream) {
   switch (code) {
-    case 0:
+    case repro::kCodeInt8:
       return launch<T, Int8>(x, q, scale, out, ws, t, d, f, splits, kchunk, stream);
-    case 1:
+    case repro::kCodeE4M3:
       return launch<T, E4M3>(x, q, scale, out, ws, t, d, f, splits, kchunk, stream);
     default:
       return -1;

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` in its contiguous
-and paged, full and sliding-window, full-precision forms.  One kernel
+and paged, full and sliding-window, full-precision and quantized-KV
+forms.  One kernel
 serves the three serving geometries through the adapters in
 kernels/ops.py:
 
@@ -18,6 +19,10 @@ the kernel translates addresses per key row, so a tile may span pages of
 any size.  Sliding window (``window`` W): the wrapper adds the per-row
 window start ``ws = kv_len - Sq - W + 1`` and query i attends keys
 ``>= ws + i`` only; key tiles wholly below the window are skipped.
+Quantized KV (``k_scale``/``v_scale``): k/v are int8 or float8_e4m3fn
+codes, and the kernel multiplies each loaded row by its batch row's
+float32 scale before the fp32 math; the wrapper broadcasts the () or
+(B,) scales to (B,) rows on q's device.
 
 The arguments are checked as the kernel needs them on either device
 (dtype, shapes, one device, layout); then a CUDA tensor launches the
@@ -31,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention_ref import masked_attention_ref
+from repro_torch.kernels.flash_attention_ref import (QUANT_DTYPES, check_scales,
+                                                     masked_attention_ref)
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
@@ -48,6 +54,20 @@ def _rows(x, default: int, b: int, device) -> torch.Tensor:
     if t.dim() > 1 or (t.dim() == 1 and t.shape[0] != b):
         raise ValueError(f"per-batch row of shape {tuple(t.shape)} for batch {b}")
     return t.expand(b).contiguous()
+
+
+def _scale_row(x, b: int, device) -> torch.Tensor:
+    """A () or (B,) float32 scale (a Python float, or a tensor on q's
+    device) -> a (B,) float32 row on `device`."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((b,), float(x), dtype=torch.float32, device=device)
+    if x.dtype != torch.float32:
+        raise TypeError(f"flash_attention: scales must be float32, got {x.dtype}")
+    if x.device != device:
+        raise ValueError("flash_attention: scales must be on q's device")
+    if x.dim() > 1 or (x.dim() == 1 and x.shape[0] != b):
+        raise ValueError(f"flash_attention: scale of shape {tuple(x.shape)} for batch {b}")
+    return x.expand(b).contiguous()
 
 
 def _check_table(block_tables, q: torch.Tensor) -> None:
@@ -67,7 +87,8 @@ def _check_table(block_tables, q: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len=None, q_start=None, *, causal: bool = True,
                     scale: float | None = None, op: str = "attention",
-                    block_tables: torch.Tensor | None = None, window=None) -> torch.Tensor:
+                    block_tables: torch.Tensor | None = None, window=None,
+                    k_scale=None, v_scale=None) -> torch.Tensor:
     """q (B, Sq, H, Dh), k/v (B, Sk, KV, Dh) -> (B, Sq, H, Dh) in q's dtype.
 
     kv_len: () or (B,) int — keys at positions >= kv_len are masked
@@ -76,6 +97,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_tables: (B, nblocks) int32 on q's device — k/v are then
     (P, page, KV, Dh) pools, the page is k.shape[1], and
     Sk = nblocks * page.  window: int, () or (B,) int — sliding-window width.
+    k_scale, v_scale: float, () or (B,) float32 on q's device, both or
+    neither — k/v are then int8 or float8_e4m3fn codes (one format).
     """
     b, sq, h, dh = q.shape
     kv = k.shape[2]
@@ -97,12 +120,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = dh ** -0.5 if scale is None else scale
     static_diag = q_start is None
     code = _build.dtype_code(q, "flash_attention")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    check_scales(k, k_scale, v_scale)
+    quantized = k_scale is not None
+    if quantized and (k.dtype not in QUANT_DTYPES or v.dtype != k.dtype):
+        raise ValueError(f"flash_attention: scales with a {k.dtype} / {v.dtype} cache "
+                         "(int8 or float8_e4m3fn codes, one format)")
+    if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"flash_attention: q/k/v dtypes differ ({q.dtype}, {k.dtype}, "
                          f"{v.dtype})")
     if not all(t.device == q.device for t in (k, v)):
         raise ValueError("flash_attention: q, k and v must be on one device")
     _build.check_layout("flash_attention", q, k, v)
+    if quantized:
+        k_scale, v_scale = (_scale_row(x, b, q.device) for x in (k_scale, v_scale))
     kv_len = _rows(kv_len, sk, b, q.device)
     q_start = _rows(q_start, sk - sq, b, q.device)
     win_start = None
@@ -115,7 +145,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             win_start = kv_len - _rows(window, 0, b, q.device).clamp(max=sk + sq) - (sq - 1)
     if q.device.type == "cpu":
         return masked_attention_ref(q, k, v, kv_len, q_start, causal=causal, scale=scale,
-                                    block_tables=block_tables, win_start=win_start)
+                                    block_tables=block_tables, win_start=win_start,
+                                    k_scale=k_scale, v_scale=v_scale)
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} not supported on the card "
                          f"(built for {HEAD_DIMS})")
@@ -123,11 +154,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
-            code, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kv_len.data_ptr(), q_start.data_ptr(),
+            code, _build.CODE_FORMATS.get(k.dtype, 0), dh, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), kv_len.data_ptr(), q_start.data_ptr(),
             block_tables.data_ptr() if paged else None, nblocks, page,
             k.shape[0] if paged else 0,
             None if win_start is None else win_start.data_ptr(),
+            k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
             b, sq, sk, h, kv, float(scale), int(causal), int(static_diag), _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     _build.LAUNCHES[op] += 1

@@ -14,23 +14,30 @@ Shapes:
 Returns (B, Sq, H, Dh).
 
 The decode and chunk references take the paged (``block_table``: the
-caches are (P, page, KV, Dh) pools gathered per row, `_gather_pages`) and
-sliding-window (``window``) forms; only the quantized-KV form
-(``k_scale``/``v_scale``) is not ported and raises NotImplementedError.
+caches are (P, page, KV, Dh) pools gathered per row, `_gather_pages`),
+sliding-window (``window``) and quantized-KV (``k_scale``/``v_scale``:
+int8 or float8_e4m3fn caches, dequantized after the gather,
+`_dequant_cache`) forms.  With a quantized cache the scores and p.V run
+in float32, as JAX's einsum promotes q against the dequantized cache
+(torch's einsum does not promote, so `_einsum` casts as JAX does).
 
 `masked_attention_ref` is the plain version of the flash kernel's own
-signature (per-batch ``kv_len``, ``q_start`` and window-start rows, paged
-or contiguous K/V): the kernel wrapper takes it for tensors on the CPU.
+signature (per-batch ``kv_len``, ``q_start``, window-start and scale
+rows, paged or contiguous K/V): the kernel wrapper takes it for tensors
+on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "chunk_attention_ref", "decode_attention_ref",
-           "masked_attention_ref", "windowed_attention_ref"]
+__all__ = ["QUANT_DTYPES", "attention_ref", "check_scales", "chunk_attention_ref",
+           "decode_attention_ref", "masked_attention_ref", "windowed_attention_ref"]
 
 _NEG = -1e30
+
+# element types of a quantized KV cache (read with its k_scale / v_scale)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def _plain(q, k, v, causal, scale):
@@ -127,11 +134,29 @@ def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return pool[block_table.long()].reshape(b, n * page, *pool.shape[2:])
 
 
-def _full_precision_only(k_scale, v_scale) -> None:
-    for name, arg in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if arg is not None:
-            raise NotImplementedError(
-                f"{name}: the quantized-KV attention form is not ported yet")
+def check_scales(k_cache: torch.Tensor, k_scale, v_scale) -> None:
+    """A quantized cache comes with both scales: one scale alone, or an
+    int8 / fp8 cache without them, is refused."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("quantized KV needs both k_scale and v_scale")
+    if k_scale is None and k_cache.dtype in QUANT_DTYPES:
+        raise ValueError(f"a {k_cache.dtype} KV cache needs k_scale and v_scale")
+
+
+def _dequant_cache(cache: torch.Tensor, scale) -> torch.Tensor:
+    """Dequantize an int8 / fp8 logical cache (B, S, KV, Dh) with a () or
+    (B,) float32 scale: codes to float32, times the row's scale."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=cache.device)
+    if s.dim():
+        s = s.reshape(-1, 1, 1, 1)
+    return cache.to(torch.float32) * s
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum on the promoted dtype of its operands, as jnp.einsum: a bf16
+    q against a dequantized float32 cache computes in float32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
@@ -145,12 +170,17 @@ def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None
     (P, page, KV, Dh) and each row's logical cache is gathered through its
     table row first.  `window` (int, () or (B,) int) additionally masks
     keys at positions <= pos - window: only the trailing `window` cache
-    slots are attended.
+    slots are attended.  With `k_scale`/`v_scale` (() or (B,) float32)
+    the caches are int8 / fp8 and dequantized (after the gather) before
+    the math.
     """
-    _full_precision_only(k_scale, v_scale)
+    check_scales(k_cache, k_scale, v_scale)
     if block_table is not None:
         k_cache = _gather_pages(k_cache, block_table)
         v_cache = _gather_pages(v_cache, block_table)
+    if k_scale is not None:
+        k_cache = _dequant_cache(k_cache, k_scale)
+        v_cache = _dequant_cache(v_cache, v_scale)
     b, _, h, dh = q.shape
     kv = k_cache.shape[2]
     group = h // kv
@@ -158,7 +188,7 @@ def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None
     pos = torch.as_tensor(pos, device=q.device)
     lim = pos.reshape(-1, 1, 1, 1) if pos.dim() else pos
     qg = q.reshape(b, kv, group, dh)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg * scale, k_cache).float()
+    scores = _einsum("bkgd,bskd->bkgs", qg * scale, k_cache).float()
     ki = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, :]
     valid = ki <= lim
     if window is not None:
@@ -166,7 +196,7 @@ def decode_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None
     scores = torch.where(valid, scores, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
+    out = _einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
@@ -180,12 +210,16 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     pos: int, () or (B,) int.  With `block_table` ((B, nblocks) int) the
     caches are page pools (P, page, KV, Dh), gathered per row as in
     `decode_attention_ref`.  `window` (int, () or (B,) int) additionally
-    masks keys at positions <= pos + i - window.
+    masks keys at positions <= pos + i - window.  `k_scale`/`v_scale` mark
+    quantized caches, dequantized as in `decode_attention_ref`.
     """
-    _full_precision_only(k_scale, v_scale)
+    check_scales(k_cache, k_scale, v_scale)
     if block_table is not None:
         k_cache = _gather_pages(k_cache, block_table)
         v_cache = _gather_pages(v_cache, block_table)
+    if k_scale is not None:
+        k_cache = _dequant_cache(k_cache, k_scale)
+        v_cache = _dequant_cache(v_cache, v_scale)
     b, c, h, dh = q.shape
     kv = k_cache.shape[2]
     group = h // kv
@@ -194,7 +228,7 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     base = pos.reshape(-1, 1) if pos.dim() else pos.reshape(1, 1)
     lim = base + torch.arange(c, device=q.device)[None, :]              # (B|1, C)
     qg = q.reshape(b, c, kv, group, dh)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg * scale, k_cache).float()
+    scores = _einsum("bqkgd,bskd->bkgqs", qg * scale, k_cache).float()
     ki = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
     valid = ki <= lim[..., None]                                         # (B|1, C, S)
     if window is not None:
@@ -203,12 +237,13 @@ def chunk_attention_ref(q, k_cache, v_cache, pos, block_table=None, window=None,
     scores = torch.where(valid[:, None, None], scores, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
+    out = _einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, c, h, dh).to(q.dtype)
 
 
 def masked_attention_ref(q, k, v, kv_len, q_start, *, causal: bool, scale: float,
-                         block_tables=None, win_start=None) -> torch.Tensor:
+                         block_tables=None, win_start=None, k_scale=None,
+                         v_scale=None) -> torch.Tensor:
     """The flash kernel's function in plain PyTorch, fp32 throughout.
 
     kv_len, q_start: (B,) int tensors.  Query i of row b (global position
@@ -216,15 +251,20 @@ def masked_attention_ref(q, k, v, kv_len, q_start, *, causal: bool, scale: float
     j <= q_start[b] + i, and, with the (B,) window-start row `win_start`,
     j >= win_start[b] + i.  V rows at j >= kv_len[b] or j < win_start[b]
     count as zero.  With `block_tables` ((B, nblocks) int) k/v are
-    (P, page, KV, Dh) pools, gathered per row first.
+    (P, page, KV, Dh) pools, gathered per row first.  With the (B,)
+    float32 rows `k_scale`/`v_scale` k/v are int8 / fp8 codes, each row's
+    times its scale.
     """
     if block_tables is not None:
         k, v = _gather_pages(k, block_tables), _gather_pages(v, block_tables)
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale.view(-1, 1, 1, 1), vf * v_scale.view(-1, 1, 1, 1)
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     group = h // kv
     qg = q.reshape(b, sq, kv, group, dh).float() * scale
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf)
     ki = torch.arange(sk, device=q.device)
     qi = torch.arange(sq, device=q.device)[None, :, None]
     live = ki[None, :] < kv_len[:, None]                                # (B, Sk)
@@ -235,7 +275,7 @@ def masked_attention_ref(q, k, v, kv_len, q_start, *, causal: bool, scale: float
         mask = mask & (ki[None, None, :] >= qi + win_start[:, None, None])
         live = live & (ki[None, :] >= win_start[:, None])
     s = torch.where(mask[:, None, None], s, _NEG)
-    vf = torch.where(live[..., None, None], v.float(), 0.0)
+    vf = torch.where(live[..., None, None], vf, 0.0)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     out = out / torch.clamp_min(p.sum(dim=-1), 1e-30).permute(0, 3, 1, 2)[..., None]

@@ -8,17 +8,17 @@ what this port implements:
   * a plain PyTorch reference (provider ``torch-ref``) for ``rmsnorm``,
     ``attention``, ``windowed_attention``, ``chunk_attention`` and
     ``decode_attention`` (the last two in their contiguous and paged, full
-    and windowed forms), ``moe_gmm`` (`moe_gmm_ref`: dropless at
-    <= 1024 rows, the capacity-truncated baseline above, as in the JAX
-    package) and ``quant_matmul`` (int8 or fp8 weight codes with
-    per-output-channel scales) and ``ssd_scan`` (the Mamba-2 chunked
-    scan, `ssd_scan_ref`);
+    and windowed, full-precision and quantized-KV forms), ``moe_gmm``
+    (`moe_gmm_ref`: dropless at <= 1024 rows, the capacity-truncated
+    baseline above, as in the JAX package) and ``quant_matmul`` (int8 or
+    fp8 weight codes with per-output-channel scales) and ``ssd_scan`` (the
+    Mamba-2 chunked scan, `ssd_scan_ref`);
   * the hand-written CUDA kernels (provider ``cuda``) for the same eight,
     behind the ``cuda_kernels`` platform feature (``moe_gmm``'s is
     dropless at any row count).  Binding one builds the kernel library.
 
-Every declared op is ported.  The quantized-KV form of decode and chunk
-attention (``k_scale``/``v_scale``) raises NotImplementedError.
+Every declared op is ported, in every form the JAX package's kernels
+take.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from repro_torch.core.registry import ImplKind, OpImpl, OpRegistry, global_regis
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention_ref import (
-    _full_precision_only,
     attention_ref,
     chunk_attention_ref,
     decode_attention_ref,
@@ -46,10 +45,12 @@ from repro_torch.kernels.ssd_scan_ref import ssd_scan_ref
 
 __all__ = ["ABIS", "OP_NAMES", "PORTED_OPS", "register_all"]
 
-# Canonical signatures, copied verbatim: the structural part of the ABI string.  Changing a
-# signature (or the semantic major version) makes old native kernels
-# un-swappable — the registry will refuse, like Shifter on a libtool
-# mismatch.
+# Canonical signatures, copied verbatim from the JAX package (the quantized
+# and paged forms ride the optional trailing args that the minors below
+# record, not the signature text): the structural part of the ABI string.
+# Changing a signature (or the semantic major version) makes old native
+# kernels un-swappable — the registry will refuse, like Shifter on a
+# libtool mismatch.
 _SIGS = {
     "rmsnorm": {
         "args": ["x:[*,d]", "weight:[d]"],
@@ -156,10 +157,12 @@ def _cuda_decode_attention(q, k_cache, v_cache, pos, block_tables=None, window=N
                            k_scale=None, v_scale=None, *, scale=None):
     # decode = flash with Sq=1 over the written prefix of the cache; with
     # block_tables the caches are page pools (page = the pool's second
-    # dim); with window only the trailing `window` slots are attended
-    _full_precision_only(k_scale, v_scale)
+    # dim); with window only the trailing `window` slots are attended;
+    # with k_scale/v_scale the caches are int8/fp8 codes, dequantized in
+    # the kernel's tile loader
     return flash_attention(q, k_cache, v_cache, kv_len=pos + 1, causal=False, scale=scale,
-                           window=window, block_tables=block_tables, op="decode_attention")
+                           window=window, block_tables=block_tables, k_scale=k_scale,
+                           v_scale=v_scale, op="decode_attention")
 
 
 def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=None,
@@ -167,10 +170,10 @@ def _cuda_chunk_attention(q, k_cache, v_cache, pos, block_tables=None, window=No
     # chunked prefill = flash with the causal diagonal re-anchored at pos:
     # query i (global position pos+i) sees cache keys <= pos+i, and the
     # kv_len mask hides slots past the chunk's own freshly written tail
-    _full_precision_only(k_scale, v_scale)
     return flash_attention(q, k_cache, v_cache, kv_len=pos + q.shape[1], q_start=pos,
                            causal=True, scale=scale, window=window,
-                           block_tables=block_tables, op="chunk_attention")
+                           block_tables=block_tables, k_scale=k_scale, v_scale=v_scale,
+                           op="chunk_attention")
 
 
 def _ref_attention(q, k, v, *, causal=True, scale=None):

@@ -27,7 +27,6 @@ from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 
 __all__ = ["occupancy", "plan", "quant_matmul", "splits"]
 
-_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _BN, _BK = 128, 64            # the kernel's column tile and contraction step
 
 
@@ -67,7 +66,7 @@ def plan(x: torch.Tensor, qw: torch.Tensor) -> tuple[int, int]:
     t, d = x.shape
     device = x.device.index if x.device.index is not None else torch.cuda.current_device()
     rows, resident, sms = occupancy(device, _build.dtype_code(x, "quant_matmul"),
-                                    _CODES[qw.dtype], t)
+                                    _build.CODE_FORMATS[qw.dtype], t)
     return splits(t, d, qw.shape[1], rows, resident, sms)
 
 
@@ -81,7 +80,7 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torc
         raise ValueError(f"quant_matmul: x {tuple(x.shape)}, qw {tuple(qw.shape)} and scale "
                          f"{tuple(scale.shape)} do not chain")
     dtype = _build.dtype_code(x, "quant_matmul")
-    if qw.dtype not in _CODES:
+    if qw.dtype not in _build.CODE_FORMATS:
         raise TypeError(f"quant_matmul: codes of dtype {qw.dtype} (int8, float8_e4m3fn)")
     if scale.dtype != torch.float32:
         raise TypeError(f"quant_matmul: scale of dtype {scale.dtype} (float32)")
@@ -97,8 +96,8 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torc
     n, kchunk = plan(x, qw)
     ws = torch.empty((n, t, f), dtype=torch.float32, device=x.device) if n > 1 else None
     with torch.cuda.device(x.device):
-        err = lib.repro_quant_matmul(dtype, _CODES[qw.dtype], x.data_ptr(), qw.data_ptr(),
-                                     scale.data_ptr(), out.data_ptr(),
+        err = lib.repro_quant_matmul(dtype, _build.CODE_FORMATS[qw.dtype], x.data_ptr(),
+                                     qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
                                      None if ws is None else ws.data_ptr(), t, d, f, n, kchunk,
                                      _build.stream_of(x))
     _build.check(lib, err, "quant_matmul")

@@ -1,7 +1,7 @@
 """Serving engine on PyTorch: chunked prefill + continuous batching.
 
-The port of `repro/launch/serve.py` for the full-precision KV cache,
-contiguous or paged, with optional sliding windows.  Its parts:
+The port of `repro/launch/serve.py`: a full-precision or quantized KV
+cache, contiguous or paged, with optional sliding windows.  Its parts:
 
   * `Request`, `BlockAllocator`, `PagedPool`, `Scheduler` — the JAX
     package's pure-Python scheduling policy, copied verbatim (the tests
@@ -13,14 +13,17 @@ contiguous or paged, with optional sliding windows.  Its parts:
     tick, `Model.decode`), over a contiguous cache or, with ``paged=True``,
     page pools addressed through a `PagedPool`'s block tables, and with
     ``window=W`` sliding-window attention; ``export_slot``/``import_slot``
-    move one slot's pages (the fleet's KV handoff).  A weight tree in
-    storage form (int8 or fp8 codes with per-channel scales, from
-    ``quantize_tree`` or a ``dequantize=False`` checkpoint restore) serves
-    through ``params`` over the full-precision cache; ``quantize=``, which
-    in the JAX engine also quantizes the KV cache, raises
-    NotImplementedError.
-  * `Server` and `main` — the JAX package's facade and CLI, plus
-    ``--device``.
+    move one slot's pages (the fleet's KV handoff).  ``quantize="int8"``
+    or ``"fp8"`` serves the weights in storage form (int8 or fp8 codes
+    with per-channel scales: the seeded draws or a full-precision
+    ``params`` tree through ``quantize_tree``, or a tree already in that
+    form) over a KV cache of the same format, as the JAX engine's
+    ``quantize=``.  Without it, a storage-form tree serves through
+    ``params`` over the full-precision cache.
+  * `Server` and `main` — the JAX package's facade and CLI (with
+    ``--quantize``), plus ``--device``.  The JAX engine's admission
+    control of the deployment's footprint (``memory_budget``) is not
+    ported.
 
 Every op the model calls goes through the container's binding, so on the
 card rmsnorm and the attention ops run the CUDA kernels.
@@ -37,11 +40,13 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manifest import quantize_tree
 from repro_torch.configs import get_config
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import params_from_jax, torch_tree
 from repro_torch.core.runtime import Runtime
+from repro_torch.kernels.quant import storage_dtype
 from repro_torch.launch.bundle import make_bundle
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, tree_items
 
 __all__ = ["BlockAllocator", "PagedPool", "Request", "Scheduler", "TorchEngine",
            "Server", "SERVING_STATS_SCHEMA", "main", "serves_reduced"]
@@ -239,8 +244,12 @@ class TorchEngine:
     Weights come from ``params`` — the JAX parameter tree as numpy arrays
     or torch tensors, full precision or with leaves in storage form
     (``{"q", "scale"}``), converted by `params_from_jax` — or are drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the device.  ``device`` must
-    be the container's: the engine never moves to another one.
+    ``torch.Generator`` seeded with ``seed`` on the device.  With
+    ``quantize="int8"|"fp8"`` the KV cache is quantized (`Model`'s
+    ``kv_quantize``) and so are the weights: drawn or full-precision ones
+    through `quantize_tree`, and a tree in storage form must hold codes of
+    that format.  ``device`` must be the container's: the engine never
+    moves to another one.
     """
 
     def __init__(self, cfg, container, *, slots: int, max_len: int,
@@ -257,11 +266,10 @@ class TorchEngine:
             raise ValueError("paged cache requires prefill_mode='chunked'")
         if window is not None and window < 1:
             raise ValueError(f"sliding window of {window} tokens")
-        if quantize not in (None, "none"):
-            raise NotImplementedError(
-                f"quantize={quantize!r} quantizes the weights and the KV cache, and the "
-                "quantized KV cache is not ported yet; serve a quantized weight tree "
-                "through params= instead")
+        if quantize == "none":
+            quantize = None
+        if quantize is not None and quantize not in ("int8", "fp8"):
+            raise ValueError(f"quantize must be int8/fp8/none, got {quantize!r}")
         dev = torch.device(device)
         if dev.type != container.device.type or dev.index not in (None, container.device.index):
             raise ValueError(f"engine device {dev} is not the container's {container.device}")
@@ -272,10 +280,11 @@ class TorchEngine:
         self.prefill_mode = prefill_mode
         self.paged = paged
         self.window = window
+        self.quantize = quantize
         self.device = container.device
-        self.model = Model(cfg, container.binding, device=self.device)
+        self.model = Model(cfg, container.binding, device=self.device, kv_quantize=quantize)
         if params is None:
-            self.model.init(torch.Generator(device=self.device).manual_seed(seed))
+            self.model.init(torch.Generator(device=self.device).manual_seed(seed), quantize)
         else:
             self.load_params(params)
         self.pool = PagedPool(slots, max_len, chunk, num_pages) if paged else None
@@ -288,7 +297,11 @@ class TorchEngine:
 
     def load_params(self, np_tree: Mapping) -> None:
         """Serve the weights of a JAX parameter tree (numpy or torch
-        leaves; storage-form leaves bind the quantized paths)."""
+        leaves; storage-form leaves bind the quantized paths).  Under
+        ``quantize`` a full-precision tree is quantized first, and a tree
+        in storage form must hold codes of that format."""
+        if self.quantize is not None:
+            np_tree = _in_storage_form(np_tree, self.quantize)
         self.model.load_params(params_from_jax(np_tree, self.cfg))
 
     # -- prefill ----------------------------------------------------------
@@ -359,6 +372,24 @@ class TorchEngine:
             raise ValueError("slot import requires the paged cache")
         pages = self.pool.block_tables[slot][:pages_used]
         self.cache = self.model.import_paged_slot(self.cache, arrays, pages, slot)
+
+
+def _in_storage_form(tree: Mapping, fmt: str) -> Mapping:
+    """`tree` with its weights in storage form of format `fmt`: a tree
+    with no ``{"q", "scale"}`` leaf goes through `quantize_tree` (its
+    leaves as torch tensors), one with such leaves is returned as it is
+    when every code is of `fmt`'s dtype, and refused otherwise."""
+    leaves = dict(tree_items(tree))
+    codes = {path: leaf for path, leaf in leaves.items()
+             if path.endswith("/q") and path[:-2] + "/scale" in leaves}
+    if not codes:
+        return quantize_tree(torch_tree(tree), fmt)
+    want = str(storage_dtype(fmt)).removeprefix("torch.")
+    wrong = sorted(path for path, leaf in codes.items()
+                   if str(leaf.dtype).removeprefix("torch.") != want)
+    if wrong:
+        raise ValueError(f"quantize={fmt!r}: the tree's codes at {wrong[:3]} are not {want}")
+    return tree
 
 
 class Scheduler:
@@ -831,6 +862,10 @@ def main(argv=None) -> int:
                          "are rejected, not buffered")
     ap.add_argument("--interleave", type=int, default=2,
                     help="prefill work units per scheduler tick")
+    ap.add_argument("--quantize", choices=("none", "int8", "fp8"), default="none",
+                    help="serve int8/fp8 weights (quantize_tree's {q, scale} "
+                         "leaves, per-channel scales) over a KV cache of the same "
+                         "format: 1 byte an element, one static scale a slot")
     args = ap.parse_args(argv)
 
     reduced = serves_reduced(args.device)
@@ -842,7 +877,7 @@ def main(argv=None) -> int:
                     chunk=args.chunk, prefill_mode=args.prefill_mode,
                     queue_depth=args.queue_depth, interleave=args.interleave,
                     paged=args.paged, num_pages=args.num_pages, window=args.window,
-                    device=args.device)
+                    quantize=args.quantize, device=args.device)
     rng = np.random.default_rng(0)
     t0 = time.time()
     for rid in range(args.requests):
@@ -856,7 +891,8 @@ def main(argv=None) -> int:
     ttfts = sorted(r.ttft for r in done)
     print(f"served {len(done)} requests / {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, "
-          f"prefill_mode={args.prefill_mode}, device={container.device})")
+          f"prefill_mode={args.prefill_mode}, quantize={args.quantize}, "
+          f"device={container.device})")
     if ttfts:
         print(f"TTFT p50 {ttfts[len(ttfts) // 2] * 1e3:.1f}ms "
               f"max {ttfts[-1] * 1e3:.1f}ms | steps: "

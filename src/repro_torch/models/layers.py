@@ -18,7 +18,11 @@ weights cross over leaf for leaf.
 
 The KV cache is updated in place (`_cache_write`, `_paged_decode_write`,
 the paged chunk's page copy): JAX returns a new buffer, which on the card
-would cost a second copy of the cache per step.
+would cost a second copy of the cache per step.  A quantized cache (int8
+or fp8 k/v with ``k_scale``/``v_scale`` rows, one static scale a slot)
+takes every write through `quant_update` first, so the chunk's queries
+see their own keys through the quantized cache, as in JAX; the scales
+ride to the attention ops, which dequantize in the kernel.
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.quant import dequantize
+from repro_torch.kernels.quant import FP8_MAX, INT8_MAX, dequantize
 from repro_torch.models.schema import LeafSpec
 
 __all__ = ["rotary", "norm_schema", "norm_apply", "attention_schema", "attention_apply",
            "attention_decode", "attention_chunk", "dequant_param", "is_quantized",
-           "mlp_schema", "mlp_apply", "paged_write_index"]
+           "mlp_schema", "mlp_apply", "paged_write_index", "quant_update"]
 
 
 def is_quantized(p) -> bool:
@@ -128,6 +132,32 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, binding, *,
     return _out(out, params["wo"]), {"k": k, "v": v}
 
 
+def quant_update(upd: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
+    """Quantize fresh k/v `upd` onto a quantized cache's grid with the
+    slot's static scale (() or (B,) float32): divide in float32 by the
+    scale (not a multiply by its reciprocal), then int8 rounds half to
+    even and clips to +-127, fp8 clips to +-448 and casts.  A plain
+    ``.to(int8)`` would truncate; this is the inverse of the kernels'
+    dequantization, as JAX's ``layers._quant_update``."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=upd.device)
+    s = s.reshape(tuple(s.shape) + (1,) * (upd.dim() - s.dim()))
+    y = upd.to(torch.float32) / s
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return torch.clamp(y, -FP8_MAX, FP8_MAX).to(dtype)
+
+
+def _quantized_kv(cache: dict, k: torch.Tensor, v: torch.Tensor):
+    """(k, v, scale args of the attention op): k/v quantized onto the
+    cache's grid when it carries scales, else as they are, no scales."""
+    k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
+    if k_scale is None:
+        return k, v, ()
+    k = quant_update(k, k_scale, cache["k"].dtype)
+    v = quant_update(v, v_scale, cache["v"].dtype)
+    return k, v, (k_scale, v_scale)
+
+
 def _cache_write(buf: torch.Tensor, upd: torch.Tensor, pos) -> torch.Tensor:
     """Write `upd` (B, S, KV, Dh) into `buf` (B, Smax, KV, Dh) in place at
     sequence offset `pos` and return `buf`.
@@ -183,16 +213,19 @@ def attention_decode(params, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     table at `write_at` (`paged_write_index`, computed once per tick by
     the caller and required with `block_tables`) and the op gathers
     through it.  With `window` only the trailing `window` cache slots are
-    attended; out-of-window pages may already have been recycled.
+    attended; out-of-window pages may already have been recycled.  With
+    ``k_scale``/``v_scale`` rows in `cache` the new k/v are quantized
+    before the write (`quant_update`).
     """
     q, k, v = _qkv(params, x, cfg, pos[:, None])
+    k, v, scales = _quantized_kv(cache, k, v)
     if block_tables is not None:
         k_cache = _paged_decode_write(cache["k"], k, write_at)
         v_cache = _paged_decode_write(cache["v"], v, write_at)
     else:
         k_cache = _cache_write(cache["k"], k, pos)
         v_cache = _cache_write(cache["v"], v, pos)
-    out = binding["decode_attention"](q, k_cache, v_cache, pos, block_tables, window)
+    out = binding["decode_attention"](q, k_cache, v_cache, pos, block_tables, window, *scales)
     return _out(out, params["wo"]), {"k": k_cache, "v": v_cache}
 
 
@@ -213,11 +246,14 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
     `write_page`, the physical page block_tables[0, pos // page], which
     the caller reads from its host copy of the table (required with
     `block_tables`).  With `window` each chunk query
-    attends only its trailing `window` keys.
+    attends only its trailing `window` keys.  With ``k_scale``/``v_scale``
+    rows in `cache` the chunk's k/v are quantized before the write, so its
+    queries attend their own keys through the quantized cache.
     """
     c = x.shape[1]
     chunk_pos = pos + torch.arange(c, device=x.device)
     q, k, v = _qkv(params, x, cfg, chunk_pos)
+    k, v, scales = _quantized_kv(cache, k, v)
     if block_tables is not None:
         page = cache["k"].shape[1]
         if c != page:
@@ -228,7 +264,7 @@ def attention_chunk(params, x: torch.Tensor, cache: dict, pos: int, cfg: ModelCo
     else:
         k_cache = _cache_write(cache["k"], k, pos)
         v_cache = _cache_write(cache["v"], v, pos)
-    out = binding["chunk_attention"](q, k_cache, v_cache, pos, block_tables, window)
+    out = binding["chunk_attention"](q, k_cache, v_cache, pos, block_tables, window, *scales)
     return _out(out, params["wo"]), {"k": k_cache, "v": v_cache}
 
 

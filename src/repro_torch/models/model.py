@@ -39,6 +39,13 @@ leaves, and the embedding dequantizes only the rows it gathers.  A tied
 head (``tie_embeddings``: no ``lm_head``) is the embedding transposed,
 dequantized whole when it is in storage form, as in JAX.
 
+With ``kv_quantize="int8"|"fp8"`` the attention cache holds 1-byte
+codes: k/v (pools) of int8 / float8_e4m3fn and ``k_scale``/``v_scale``
+float32 rows of one static scale a slot (``KV_CALIBRATION_AMAX / top``),
+slot-indexed even when paged.  Every write quantizes onto that grid, the
+attention ops dequantize in their kernels, and the whole-prompt `prefill`
+attends over full-precision k/v and returns the quantized cache.
+
 Hybrid, encoder-decoder, vision, non-RMSNorm and interleaved-MoE
 configurations are not ported: they raise NotImplementedError.
 """
@@ -52,16 +59,23 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.manifest import quantize_tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.quant import FORMATS, FP8_MAX, INT8_MAX, storage_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply, moe_schema
-from repro_torch.models.schema import LeafSpec, init_params, map_leaves, torch_dtype
+from repro_torch.models.schema import LeafSpec, map_leaves, torch_dtype
 from repro_torch.models.ssm import (ssm_apply, ssm_decode, ssm_init_cache_shapes,
                                     ssm_prefill_chunk, ssm_schema)
 
-__all__ = ["Model", "flatten_params", "tree_items"]
+__all__ = ["KV_CALIBRATION_AMAX", "Model", "flatten_params", "tree_items"]
 
 Tree = dict[str, Any]
+
+# Static KV-cache calibration, the JAX model's constant: one amax for every
+# slot (scale = amax / the format's top), so the (B,) scale rows are cache
+# leaves that no step changes.
+KV_CALIBRATION_AMAX = 8.0
 
 
 def _stack(tree: Tree, n: int) -> Tree:
@@ -167,7 +181,8 @@ def tree_items(tree: Tree, prefix: str = ""):
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, binding, *, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: ModelConfig, binding, *, device: str | torch.device = "cuda",
+                 kv_quantize: str | None = None):
         super().__init__()
         ssm = cfg.family == "ssm"
         if (cfg.family not in ("dense", "moe", "ssm") or cfg.norm != "rmsnorm"
@@ -177,6 +192,16 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: only dense, all-MoE or Mamba-2, RMSNorm + SiLU-GLU text "
                 "decoders are ported")
+        if kv_quantize is not None:
+            if kv_quantize not in FORMATS:
+                raise ValueError(f"kv_quantize must be one of {FORMATS}, got {kv_quantize!r}")
+            if ssm:
+                raise ValueError(f"{cfg.name}: an SSM has no KV cache to quantize")
+        self.kv_quantize = kv_quantize
+        # the cache's element type, and the scale every slot starts and stays at
+        self.kv_dtype = storage_dtype(kv_quantize) if kv_quantize else torch_dtype(cfg.dtype)
+        self.kv_scale_init = (None if kv_quantize is None else KV_CALIBRATION_AMAX / (
+            INT8_MAX if kv_quantize == "int8" else FP8_MAX))
         self.cfg = cfg
         self.binding = binding
         self.device = torch.device(device)
@@ -224,12 +249,25 @@ class Model(nn.Module):
                                             ("embed", "vocab"), init="scaled")}
         return sch
 
-    def init(self, generator: torch.Generator) -> "Model":
-        """Draw every parameter from `generator` (on the model's device)."""
+    def draw(self, generator: torch.Generator, quantize: str | None = None) -> Tree:
+        """The JAX-layout parameter tree drawn from `generator` (on its
+        device), leaf by leaf in schema order.  With `quantize` ("int8" or
+        "fp8") each leaf `quantize_tree` picks is stored as codes and
+        scales as it is drawn, so the peak is the codes plus one leaf."""
+        dtype = torch_dtype(self.cfg.dtype)
+
+        def leaf(path: str, spec: LeafSpec):
+            t = spec.materialize(generator, dtype)
+            return quantize_tree({path: t}, quantize)[path] if quantize else t
+
+        return map_leaves(leaf, self.schema())
+
+    def init(self, generator: torch.Generator, quantize: str | None = None) -> "Model":
+        """Draw every parameter from `generator` (on the model's device),
+        in storage form with `quantize` (`draw`)."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
-        return self.load_params(flatten_params(init_params(self.schema(), generator,
-                                                           self.cfg.dtype)))
+        return self.load_params(flatten_params(self.draw(generator, quantize)))
 
     def load_params(self, state: Mapping[str, torch.Tensor]) -> "Model":
         """Bind a full state dict (``layers.{i}.attn.wq``, ...): each tensor
@@ -268,36 +306,56 @@ class Model(nn.Module):
         return {name: ((self.num_blocks,) + shape, dt)
                 for name, (shape, dt) in ssm_init_cache_shapes(self.cfg, batch).items()}
 
+    def _kv_leaves(self, shape: tuple, slots: int) -> dict:
+        """k/v of `shape` in the cache's element type, and with a quantized
+        cache the (layers, slots) float32 scale rows."""
+        dt = str(self.kv_dtype).removeprefix("torch.")
+        leaves = {name: (shape, dt) for name in ("k", "v")}
+        if self.kv_quantize:
+            leaves.update({name: ((self.num_blocks, slots), "float32")
+                           for name in ("k_scale", "v_scale")})
+        return leaves
+
     def cache_shapes(self, batch: int, max_len: int) -> Tree:
         """Contiguous cache entry shapes, as the JAX model's: attention k/v
-        (layers, B, max_len, KV, Dh) in the model dtype, or an SSM's state
-        (layers, B, H, N, P) float32 and conv tail (layers, B, conv-1, Din)."""
+        (layers, B, max_len, KV, Dh) in the model dtype (or int8 / fp8 with
+        (layers, B) scale rows), or an SSM's state (layers, B, H, N, P)
+        float32 and conv tail (layers, B, conv-1, Din)."""
         if self.cfg.family == "ssm":
             return {"p0": self._slot_leaves(batch)}
         shape = (self.num_blocks, batch, max_len, self.cfg.num_kv_heads, self.cfg.head_dim)
-        return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
+        return {"p0": self._kv_leaves(shape, batch)}
 
     def init_cache(self, batch: int, max_len: int) -> Tree:
-        """Zeroed cache ``{"p0": {...}}`` of `cache_shapes`."""
-        return self._zeros(self.cache_shapes(batch, max_len))
+        """Cache ``{"p0": {...}}`` of `cache_shapes`: zeros, scale rows at
+        the calibration."""
+        return self._init_cache(self.cache_shapes(batch, max_len))
 
     def paged_cache_shapes(self, num_pages: int, page_size: int, slots: int) -> Tree:
         """Paged-cache entry shapes, as the JAX model's: attention k/v become
         page pools (layers, num_pages, page_size, KV, Dh) shared by all
         slots; an SSM's state and conv tail are O(1) a slot and stay
-        slot-indexed (``slots`` rows) as in `cache_shapes`."""
+        slot-indexed (``slots`` rows) as in `cache_shapes`, and so do a
+        quantized cache's scale rows."""
         if self.cfg.family == "ssm":
             return {"p0": self._slot_leaves(slots)}
         shape = (self.num_blocks, num_pages, page_size, self.cfg.num_kv_heads,
                  self.cfg.head_dim)
-        return {"p0": {name: (shape, self.cfg.dtype) for name in ("k", "v")}}
+        return {"p0": self._kv_leaves(shape, slots)}
 
     def init_paged_cache(self, num_pages: int, page_size: int, slots: int) -> Tree:
-        """Zeroed paged cache ``{"p0": {...}}`` of `paged_cache_shapes`."""
-        return self._zeros(self.paged_cache_shapes(num_pages, page_size, slots))
+        """Paged cache ``{"p0": {...}}`` of `paged_cache_shapes`: zeros,
+        scale rows at the calibration."""
+        return self._init_cache(self.paged_cache_shapes(num_pages, page_size, slots))
 
-    def _zeros(self, shapes: Tree) -> Tree:
-        return {pj: {name: torch.zeros(shape, dtype=torch_dtype(dt), device=self.device)
+    def _init_cache(self, shapes: Tree) -> Tree:
+        """Zeros, but the scale rows start at the calibration, as in JAX: a
+        zero scale would blow up the first quantized write."""
+        def fill(name: str) -> float:
+            return self.kv_scale_init if name in ("k_scale", "v_scale") else 0
+
+        return {pj: {name: torch.full(shape, fill(name), dtype=torch_dtype(dt),
+                                      device=self.device)
                      for name, (shape, dt) in entry.items()}
                 for pj, entry in shapes.items()}
 
@@ -307,16 +365,16 @@ class Model(nn.Module):
         ``pages`` is the slot's leased page ids in block-table order (only
         the written prefix).  Keys are ``"p{j}/{leaf}"``: k/v yield
         ``(layers, len(pages), page_size, KV, Dh)`` page stacks and an SSM's
-        leaves the slot's row ``(layers, ...)``, as the JAX model exports
-        them; bf16 leaves export as float32 (exact), since numpy has no
-        bfloat16.
+        leaves the slot's row ``(layers, ...)`` (so do a quantized cache's
+        scale rows), as the JAX model exports them; bf16 and fp8 leaves
+        export as float32 (exact), since numpy has neither.
         """
         ix = torch.as_tensor(np.asarray(pages, dtype=np.int64), device=self.device)
         out: dict = {}
         for pj, entry in cache.items():
             for name, buf in entry.items():
                 stack = buf[:, ix] if name in ("k", "v") else buf[:, slot]
-                if stack.dtype == torch.bfloat16:
+                if stack.dtype in (torch.bfloat16, torch.float8_e4m3fn):
                     stack = stack.float()
                 out[f"{pj}/{name}"] = stack.cpu().numpy()
         return out
@@ -382,7 +440,16 @@ class Model(nn.Module):
             y, _ = L.attention_chunk(blk.attn, h, lc, pos, cfg, binding, **attn_kw)
         else:
             y, kv = L.attention_apply(blk.attn, h, cfg, binding, positions=positions)
-            kv = {name: t.to(self.dtype) for name, t in kv.items()}
+            if self.kv_quantize:
+                # the whole prompt attends over full-precision k/v; the cache
+                # it leaves is quantized with every row at the calibration
+                sc = torch.full((h.shape[0],), self.kv_scale_init, dtype=torch.float32,
+                                device=h.device)
+                kv = {"k": L.quant_update(kv["k"], sc, self.kv_dtype),
+                      "v": L.quant_update(kv["v"], sc, self.kv_dtype),
+                      "k_scale": sc, "v_scale": sc}
+            else:
+                kv = {name: t.to(self.dtype) for name, t in kv.items()}
         x = x + y
         if hasattr(blk, "moe"):
             x = x + moe_apply(blk.moe, L.norm_apply(blk.post_norm, x, cfg, binding), cfg, binding)
@@ -438,7 +505,8 @@ class Model(nn.Module):
     def prefill(self, batch: Mapping[str, Any]):
         """Whole-prompt forward: ``batch["tokens"]`` (B, S) -> (last-token
         logits (B, vocab) float32, the cache it leaves: k/v with S
-        positions, or an SSM's state and conv tail)."""
+        positions (quantized, with (B,) scale rows, under `kv_quantize`),
+        or an SSM's state and conv tail)."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=self.device)
         leaves: dict[str, list] = {}

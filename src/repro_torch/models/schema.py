@@ -2,8 +2,9 @@
 
 Every parameter leaf is declared once as a `LeafSpec` (shape + logical
 axis names + initializer), as in `repro/models/schema.py`, so the port's
-schema tree equals the JAX package's.  `init_params` materializes it with
-an explicit `torch.Generator` on the target device, by the same rules:
+schema tree equals the JAX package's.  `LeafSpec.materialize` draws a
+leaf with an explicit `torch.Generator` on the target device (`Model.draw`
+walks the tree), by the same rules:
 ``normal`` (N(0, 1) * scale), ``scaled`` (N(0, 1) / sqrt(fan_in), where
 fan_in is the leaf's first dimension), ``ones`` and ``zeros``.  The
 numbers differ from JAX's (another generator); the distributions do not.
@@ -17,7 +18,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["LeafSpec", "init_params", "map_leaves", "leaf_items", "torch_dtype"]
+__all__ = ["LeafSpec", "map_leaves", "leaf_items", "torch_dtype"]
 
 Tree = dict[str, Any]
 
@@ -87,8 +88,3 @@ def map_leaves(fn: Callable[[str, LeafSpec], Any], tree: Tree, prefix: str = "")
         out[k] = fn(path, v) if isinstance(v, LeafSpec) else map_leaves(fn, v, path)
     return out
 
-
-def init_params(schema: Tree, generator: torch.Generator, default_dtype: str) -> Tree:
-    """Materialize every leaf of `schema` on the generator's device."""
-    dd = torch_dtype(default_dtype)
-    return map_leaves(lambda _, s: s.materialize(generator, dd), schema)

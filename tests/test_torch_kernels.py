@@ -390,15 +390,6 @@ def test_paged_and_windowed_forms_run(arg):
         assert out.shape == q.shape and torch.allclose(out, q)
 
 
-@pytest.mark.parametrize("arg", ["k_scale", "v_scale"])
-def test_unported_attention_forms_raise(arg):
-    q, k = torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 2, 8)
-    for fn in (decode_attention_ref, chunk_attention_ref, ops._cuda_decode_attention,
-               ops._cuda_chunk_attention):
-        with pytest.raises(NotImplementedError):
-            fn(q, k, k, 0, **{arg: torch.ones(1)})
-
-
 def test_wrapper_checks_the_block_table_on_every_device():
     """A table the card could not read is refused before any branch."""
     q, pool = torch.zeros(2, 1, 2, 8), torch.zeros(5, 4, 2, 8)

@@ -19,7 +19,8 @@
     and through the kernel path; the embedding bit for bit;
   * serving: the port's `Server` on a quantized tree gives the greedy
     tokens of the JAX engine driving the same tree over its full-precision
-    cache, contiguous and paged; `TorchEngine(quantize=)` still raises.
+    cache, contiguous and paged (`TorchEngine(quantize=)`, which quantizes
+    the KV cache too, is held in tests/test_torch_kvquant.py).
 
 Inputs are drawn with numpy from a crc32 seed of the case id.
 """
@@ -64,7 +65,7 @@ from repro_torch.kernels.ops import PORTED_OPS
 from repro_torch.kernels.quant_matmul import quant_matmul, splits
 from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 from repro_torch.launch.bundle import make_bundle
-from repro_torch.launch.serve import Request, Server, TorchEngine
+from repro_torch.launch.serve import Request, Server
 from repro_torch.models.layers import dequant_param
 from repro_torch.models.model import Model
 
@@ -543,10 +544,3 @@ def test_server_on_a_quantized_tree_gives_the_jax_tokens(jax_container, torch_co
     assert all(r.done for r in tserver.requests)
     assert [r.tokens for r in tserver.requests] == [r.tokens for r in jserver.requests]
     assert tserver.engine.decode_calls == jserver.engine.decode_calls
-
-
-@pytest.mark.parametrize("fmt", ["int8", "fp8"])
-def test_engine_quantize_option_still_raises_for_the_kv_cache(torch_container, fmt):
-    with pytest.raises(NotImplementedError, match="KV cache is not ported"):
-        TorchEngine(get_config(ARCH).reduced(), torch_container, slots=1, max_len=16,
-                    device="cpu", quantize=fmt)

@@ -11,9 +11,9 @@
   * policy: the copied `Scheduler` driven by a fake engine and a fake
     clock — admission, queue-depth rejection, prefill/decode interleave,
     the step-count invariants;
-  * the engine's option that is not ported (quantize) raises, the CLI
-    serves on the CPU, paged and windowed too, and it serves the published
-    widths when asked for the card.
+  * the engine refuses what the JAX engine refuses, the CLI serves on the
+    CPU, paged and windowed too, and it serves the published widths when
+    asked for the card (quantize= is held in tests/test_torch_kvquant.py).
 """
 
 import math
@@ -211,13 +211,6 @@ def test_slot_handoff_needs_the_paged_cache(torch_container):
         eng.export_slot(0, 4)
     with pytest.raises(ValueError, match="paged"):
         eng.import_slot(0, {}, 1)
-
-
-@pytest.mark.parametrize("option", [{"quantize": "int8"}, {"quantize": "fp8"}])
-def test_unported_engine_options_raise(torch_container, option):
-    with pytest.raises(NotImplementedError):
-        TorchEngine(get_config(ARCH).reduced(), torch_container, slots=1, max_len=16,
-                    device="cpu", **option)
 
 
 @pytest.mark.parametrize("option", [{"paged": True, "prefill_mode": "decode"}, {"window": 0}])
