@@ -18,8 +18,14 @@ Phases, each one printed line per case, each raising on failure:
                then the flash kernel's paged forms (shuffled tables over
                pools whose park page is poisoned, page 128 and page 16),
                windowed forms (W = 512; W >= kv_len bit-identical to no
-               window) and paged + windowed forms (dead pages parked), and
-               the windowed_attention op.
+               window) and paged + windowed forms (dead pages parked), each
+               over a cache in q's dtype and over int8 and e4m3 caches with
+               one fp32 scale a row (these also contiguous, and inside
+               ATTN_ENVELOPE of the fp32 oracle on the unquantized cache;
+               their library yardstick dequantizes the codes once at KV
+               width and calls SDPA, with enable_gqa or over the heads
+               expanded, whichever is faster), and the windowed_attention
+               op.
   4. model   — full width, 2 layers, fp32: logits of the CUDA binding
                against the plain binding for prefill, prefill_into with a
                partial last chunk, and decode with a parked slot.
@@ -52,21 +58,15 @@ Phases, each one printed line per case, each raising on failure:
                one whole-prompt Model.prefill, run Q8P int8 paged on 25
                pages (its tokens must equal Q8's), run QF8 fp8 contiguous;
                every step launches quant_matmul 3 x 48 + 1 times.
-               The quantized KV cache (its kernel cases run with phase 3):
-               the flash kernel's quantized-KV form, int8 and e4m3 caches
-               with one fp32 scale a row, at qwen's decode (B = 4, pos
-               100/700/1600/2047) and chunk (C = 128, pos 1792/1900)
-               shapes, contiguous, paged (page 128 and 16), windowed and
-               paged + windowed, q fp32 and bf16: within TOLS of the plain
-               version, inside ATTN_ENVELOPE of the fp32 oracle on the
-               unquantized cache, launch pairs torch.equal, W >= kv_len
-               bit-identical to no window; the 2-layer model phase again
-               over a cache of the weights' format; then the same int8
-               and fp8 trees served with quantize= (the KV cache
-               quantized too): run K8 int8 contiguous, K8P int8 paged on
-               25 pages (its tokens must equal K8's), KF8 fp8 contiguous,
-               each printing its share of K and V codes at the clip, its
-               attention launches a step and its peak memory.
+               The quantized KV cache (the flash kernel's quantized-KV
+               form is held against its plain version with the other
+               forms, phase 3): the 2-layer model phase again over a cache
+               of the weights' format; then the same int8 and fp8 trees
+               served with quantize= (the KV cache quantized too): run K8
+               int8 contiguous, K8P int8 paged on 25 pages (its tokens
+               must equal K8's), KF8 fp8 contiguous, each printing its
+               share of K and V codes at the clip, its attention launches
+               a step and its peak memory.
   7. moe     — the MoE path, the repo's moonshot-v1-16b-a3b config
                (Moonlight-16B-A3B's widths; its 48 layers and MHA 16/16
                are the repo's, not the published model's)
@@ -375,13 +375,14 @@ def phase_kernels(torch, flush) -> dict:
     return report
 
 
-def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fn, bnd,
+def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fns, bnd,
                 main_case, bitwise=None, envelope=None):
     """One flash-kernel case: cuda_fn() finite, within TOLS of plain_fn()
     and equal to itself on a second launch; with `bitwise` (a launch at
     W >= kv_len and its unwindowed counterpart) the two bit-identical; with
     `envelope` ((oracle_fn, limit)) within `limit` of oracle_fn().  Then
-    timed and recorded (`_record`)."""
+    timed and recorded (`_record`), the library time the fastest of
+    `lib_fns`."""
     full = f"{key} {label}"
     got = cuda_fn()
     if not torch.isfinite(got.float()).all():
@@ -404,40 +405,104 @@ def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fn,
         if not torch.equal(wide, plain):
             fail("kernels", f"{full}: W >= kv_len is not bit-identical to no window")
         notes.append("W >= kv_len bit-identical to the unwindowed launch")
+    lib_ms = [time_ms(torch, f, flush) for f in lib_fns]
+    if len(lib_ms) > 1:
+        notes.append("library routes " + " / ".join(f"{t:.4f}" for t in lib_ms) + " ms")
     print(f"[kernels] {key:<32} {label:<40} {dn:<8} {'; '.join(notes)}")
     _record(report, key, label, dn, err, time_ms(torch, cuda_fn, flush),
-            time_ms(torch, plain_fn, flush), time_ms(torch, lib_fn, flush), bnd, main_case)
+            time_ms(torch, plain_fn, flush), min(lib_ms), bnd, main_case)
 
 
-def _paged_pool(torch, randn, kv, dh, page, positions, seed):
-    """Page pools (P, page, KV, Dh) with a shuffled block table: row b maps
-    the blocks its positions 0..positions[b] touch to distinct pages, the
-    rest to the park page 0, which is filled with POISON."""
-    nblocks = MAX_LEN // page
-    npages = 1 + len(positions) * nblocks
-    pk, pv = (randn(npages, page, kv, dh) for _ in range(2))
-    pk[0], pv[0] = POISON, POISON
-    perm = torch.randperm(npages - 1, generator=torch.Generator().manual_seed(seed)) + 1
-    table = perm.reshape(len(positions), nblocks).to(torch.int32)
-    for b, p in enumerate(positions):
-        table[b, p // page + 1:] = 0
-    return pk, pv, table.cuda()
+def _quantize_rows(torch, x, fmt: str):
+    """Codes of a (B, S, KV, Dh) cache with one amax scale a batch row (as
+    tests/test_quant_conformance.py quantizes its grid), written by the
+    model's cache write `quant_update`: (codes, (B,) float32 scales)."""
+    from repro_torch.kernels.quant import FP8_MAX, INT8_MAX, storage_dtype
+    from repro_torch.models.layers import quant_update
+
+    top = INT8_MAX if fmt == "int8" else FP8_MAX
+    scale = x.float().abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / top
+    return quant_update(x, scale, storage_dtype(fmt)), scale
 
 
-def _gathered(torch, pool, table, group):
-    """The logical cache a table addresses, KV heads expanded, (B, H, S, Dh):
-    the library call's input (built outside its timing)."""
+def _paged_pool(torch, cache, page, last, seed):
+    """Page pools (P, page, KV, Dh) holding a (B, S, KV, Dh) cache's blocks
+    on shuffled pages, and the block table: row b maps the blocks its
+    positions 0..last[b] touch to their pages, the rest to the park page
+    0, which holds POISON in the cache's dtype (a 1-byte cache: its code)."""
+    b, s = cache.shape[:2]
+    n = s // page
+    perm = torch.randperm(b * n, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, n).to(torch.int32)
+    pool = torch.empty((1 + b * n, page) + tuple(cache.shape[2:]), dtype=cache.dtype,
+                       device=cache.device)
+    pool[0] = torch.full(tuple(pool.shape[1:]), POISON, device=cache.device).to(cache.dtype)
+    pool[table.reshape(-1).long().cuda()] = cache.reshape(b * n, page, *cache.shape[2:])
+    for row, p in enumerate(last):
+        table[row, p // page + 1:] = 0
+    return pool, table.cuda()
+
+
+def _gathered(pool, table):
+    """The logical (B, S, KV, Dh) cache a block table addresses in a pool."""
     b, n = table.shape
-    x = pool[table.long()].reshape(b, n * pool.shape[1], *pool.shape[2:])
-    return x.repeat_interleave(group, dim=2).transpose(1, 2)
+    return pool[table.long()].reshape(b, n * pool.shape[1], *pool.shape[2:])
+
+
+def _library(torch, qt, k, v, scales, mask, group) -> tuple:
+    """The library yardsticks of a flash case over the logical cache k, v
+    (B, S, KV, Dh), a paged case's pages gathered outside the timing.  In
+    q's dtype: SDPA over the KV heads expanded outside the timing.  A 1-byte
+    cache: the codes dequantized once, at KV width, to q's dtype inside the
+    timing, then SDPA with enable_gqa=True, or SDPA over the dequantized
+    heads expanded (repeat_interleave); `_flash_case` keeps the faster."""
+    import torch.nn.functional as F
+
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if not scales:
+        kx, vx = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
+        return (lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),)
+    ks, vs = (s.view(-1, 1, 1, 1) for s in scales)
+
+    def dequantized():
+        return (kt.float() * ks).to(qt.dtype), (vt.float() * vs).to(qt.dtype)
+
+    def gqa():
+        kd, vd = dequantized()
+        return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    def expanded():
+        kd, vd = dequantized()
+        return F.scaled_dot_product_attention(qt, kd.repeat_interleave(group, dim=1),
+                                              vd.repeat_interleave(group, dim=1),
+                                              attn_mask=mask)
+    return gqa, expanded
+
+
+def _key_work(limits, window) -> tuple[int, int]:
+    """(K/V rows, (query, key) pairs) that causal queries need: `limits`
+    holds each batch row's list of query positions."""
+    rows = pairs = 0
+    for lims in limits:
+        low = 0 if window is None else max(0, min(lims) - window + 1)
+        rows += max(lims) + 1 - low
+        pairs += sum(p + 1 if window is None else min(window, p + 1) for p in lims)
+    return rows, pairs
 
 
 def phase_kernel_forms(torch, flush) -> dict:
-    """The paged, windowed and paged + windowed forms of the flash kernel,
-    and the windowed_attention op, against their plain versions at the full
-    widths; returns the main-path cases (bf16, page 128) keyed by form."""
-    import torch.nn.functional as F
-
+    """The flash kernel's forms beyond phase 3's at qwen's serve shapes,
+    against their plain versions, for each K/V format: the cache in q's own
+    dtype, and int8 / e4m3 codes with one fp32 scale a batch row (written
+    by the model's cache write).  Decode B = 4 at positions
+    100/700/1600/2047, chunks of C = 128 at position 1792: windowed (W =
+    512; W >= kv_len bit-identical to no window), paged (shuffled tables,
+    park page poisoned; page 128, and 16 for decode) and paged + windowed
+    (dead pages parked).  A quantized cache also contiguous (the chunk at
+    1900 and 1792), and inside ATTN_ENVELOPE of the fp32 oracle on the
+    unquantized cache.  Then the windowed_attention op.  q fp32 and bf16;
+    every launch pair bit-identical.  Returns the main-path cases (bf16;
+    page 128; the contiguous chunk at 1900) keyed by form."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention_ref import (
@@ -452,12 +517,71 @@ def phase_kernel_forms(torch, flush) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     report = {}
     positions = (100, 700, 1600, MAX_LEN - 1)
-    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    c, cpos = 128, 1792
+    c = 128
     ki = torch.arange(MAX_LEN, device="cuda")
+    refs = {"decode_attention": decode_attention_ref, "chunk_attention": chunk_attention_ref}
 
-    def case(*args, **kw):
-        _flash_case(torch, flush, report, *args, **kw)
+    def forms(op, q, k, v, fmt, ats, pages, dn, es):
+        """Every form of `op` for q over the unquantized cache k, v (B,
+        MAX_LEN, KV, Dh), stored in q's dtype or as `fmt` codes: a 1-byte
+        cache contiguous at each position in `ats`, then at the last of
+        them windowed, and for each page size paged and paged + windowed."""
+        cuda, ref = getattr(ops, f"_cuda_{op}"), refs[op]
+        b, sq = q.shape[:2]
+        qt = q.transpose(1, 2)
+        if fmt is None:
+            kc, vc, sc, sb = k, v, (), 0
+        else:
+            (kc, ks), (vc, vs) = _quantize_rows(torch, k, fmt), _quantize_rows(torch, v, fmt)
+            sc, sb = (ks, vs), 2 * 4 * b                  # the two scale rows
+
+        def limits(at):
+            if isinstance(at, int):
+                return [[at + i for i in range(sq)] for _ in range(b)]
+            return [[p] for p in at.tolist()]
+
+        def one(form, label, at, kk, vv, table=None, window=None, parked=None, main=True):
+            """One case; the windowed call reads `parked` where given (its
+            dead blocks on the park page), the W >= kv_len launch `table`."""
+            tab = table if parked is None else parked
+            lims = limits(at)
+            lim = torch.tensor(lims, device="cuda")[..., None]
+            mask = ki <= lim
+            if window is not None:
+                mask = mask & (ki > lim - window)
+            rows, pairs = _key_work(lims, window)
+            logical = (kk, vv) if table is None else (_gathered(kk, table), _gathered(vv, table))
+            tb = 0 if table is None else table.numel() * 4
+            key = f"{op}/" + "+".join(([f"kv_{fmt}"] if fmt else []) + ([form] if form else []))
+            _flash_case(
+                torch, flush, report, key, f"{'B=4' if sq == 1 else f'C={c} pos={at}'} {label}",
+                dn, lambda: cuda(q, kk, vv, at, tab, window, *sc),
+                lambda: ref(q, kk, vv, at, tab, window, *sc),
+                _library(torch, qt, *logical, sc, mask[:, None], group),
+                attn_bound(b, sq, h, kv, dh, rows, pairs, es, dn, tb + sb,
+                           kv_esize=1 if fmt else None),
+                dn == "bfloat16" and main,
+                bitwise=None if window is None else (
+                    lambda: cuda(q, kk, vv, at, table, 2 * MAX_LEN, *sc),
+                    lambda: cuda(q, kk, vv, at, table, None, *sc)),
+                envelope=None if fmt is None else (
+                    lambda: ref(q.float(), k.float(), v.float(), at, None, window),
+                    ATTN_ENVELOPE[fmt]))
+
+        for at in ats if fmt else ():
+            one("", f"Smax={MAX_LEN}", at, kc, vc, main=at is ats[0])
+        at = ats[-1]
+        lims = limits(at)
+        one("windowed", f"W={WINDOW} Smax={MAX_LEN}", at, kc, vc, window=WINDOW)
+        for page in pages:
+            pk, table = _paged_pool(torch, kc, page, [max(x) for x in lims], SEED + page)
+            pv, _ = _paged_pool(torch, vc, page, [max(x) for x in lims], SEED + page)
+            parked = table.clone()
+            for row, x in enumerate(lims):
+                parked[row, :max(0, min(x) - WINDOW) // page] = 0
+            one("paged", f"page={page} P={pk.shape[0]}", at, pk, pv, table, main=page == 128)
+            one("paged+windowed", f"page={page} W={WINDOW} dead parked", at, pk, pv, table,
+                WINDOW, parked, main=page == 128)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
@@ -466,102 +590,26 @@ def phase_kernel_forms(torch, flush) -> dict:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        keys = sum(p + 1 for p in positions)
-        wkeys = sum(min(WINDOW, p + 1) for p in positions)
-        dmask = (ki[None, :] <= pos[:, None])[:, None, None]
-        wmask = dmask & (ki[None, :] > (pos - WINDOW)[:, None])[:, None, None]
-
-        # decode over page pools, page 128 (the serve geometry) and 16 (four
-        # pages per 64-key tile)
-        q = randn(4, 1, h, dh)
-        qt = q.transpose(1, 2)
-        for page in (128, 16):
-            pk, pv, table = _paged_pool(torch, randn, kv, dh, page, positions, SEED + page)
-            kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
-            tb = table.numel() * 4
-            case("decode_attention/paged", f"B=4 page={page} P={pk.shape[0]}", dn,
-                 lambda: ops._cuda_decode_attention(q, pk, pv, pos, table),
-                 lambda: decode_attention_ref(q, pk, pv, pos, table),
-                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=dmask),
-                 attn_bound(4, 1, h, kv, dh, keys, keys, es, dn, tb),
-                 dn == "bfloat16" and page == 128)
-            # the same pools, windowed, with the blocks wholly below every
-            # window start parked on the poisoned page
-            wt = table.clone()
-            for b, p in enumerate(positions):
-                wt[b, :max(0, p - WINDOW) // page] = 0
-            case("decode_attention/paged+windowed", f"B=4 page={page} W={WINDOW} dead parked",
-                 dn, lambda: ops._cuda_decode_attention(q, pk, pv, pos, wt, WINDOW),
-                 lambda: decode_attention_ref(q, pk, pv, pos, wt, WINDOW),
-                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=wmask),
-                 attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn, tb),
-                 dn == "bfloat16" and page == 128)
-            del pk, pv, kt, vt
-
-        # decode over a contiguous cache, windowed
-        kc, vc = randn(4, MAX_LEN, kv, dh), randn(4, MAX_LEN, kv, dh)
-        kt = kc.repeat_interleave(group, dim=2).transpose(1, 2)
-        vt = vc.repeat_interleave(group, dim=2).transpose(1, 2)
-        case("decode_attention/windowed", f"B=4 W={WINDOW} Smax={MAX_LEN}", dn,
-             lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, WINDOW),
-             lambda: decode_attention_ref(q, kc, vc, pos, None, WINDOW),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=wmask),
-             attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn), dn == "bfloat16",
-             bitwise=(lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, 2 * MAX_LEN),
-                      lambda: ops._cuda_decode_attention(q, kc, vc, pos)))
-        del kc, vc, kt, vt
-
-        # chunk C=128 at pos 1792: paged (the last block parked), windowed,
-        # paged + windowed with the dead blocks parked
-        q = randn(1, c, h, dh)
-        qt = q.transpose(1, 2)
-        lim = cpos + torch.arange(c, device="cuda")[:, None]
-        cmask = (ki[None, :] <= lim)[None, None]
-        cwmask = cmask & (ki[None, :] > lim - WINDOW)[None, None]
-        pairs = c * cpos + c * (c + 1) // 2
-        wpairs = sum(min(WINDOW, cpos + i + 1) for i in range(c))
-        wrows = cpos + c - max(0, cpos - WINDOW + 1)
-        pk, pv, table = _paged_pool(torch, randn, kv, dh, 128, (cpos + c - 1,), SEED + 3)
-        kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
-        tb = table.numel() * 4
-        case("chunk_attention/paged", f"C={c} pos={cpos} page=128", dn,
-             lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table),
-             lambda: chunk_attention_ref(q, pk, pv, cpos, table),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=cmask),
-             attn_bound(1, c, h, kv, dh, cpos + c, pairs, es, dn, tb), dn == "bfloat16")
-        wt = table.clone()
-        wt[0, :max(0, cpos - WINDOW) // 128] = 0
-        case("chunk_attention/paged+windowed", f"C={c} pos={cpos} W={WINDOW} dead parked", dn,
-             lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, wt, WINDOW),
-             lambda: chunk_attention_ref(q, pk, pv, cpos, wt, WINDOW),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=cwmask),
-             attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn, tb), dn == "bfloat16",
-             bitwise=(lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table, 2 * MAX_LEN),
-                      lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table)))
-        kc, vc = (x[table.long()].reshape(1, MAX_LEN, kv, dh) for x in (pk, pv))
-        case("chunk_attention/windowed", f"C={c} pos={cpos} W={WINDOW} Smax={MAX_LEN}", dn,
-             lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, WINDOW),
-             lambda: chunk_attention_ref(q, kc, vc, cpos, None, WINDOW),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=cwmask),
-             attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn), dn == "bfloat16")
-        del pk, pv, kc, vc, kt, vt
+        for fmt in (None, "int8", "fp8"):
+            pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+            forms("decode_attention", randn(4, 1, h, dh), randn(4, MAX_LEN, kv, dh),
+                  randn(4, MAX_LEN, kv, dh), fmt, (pos,), (128, 16), dn, es)
+            forms("chunk_attention", randn(1, c, h, dh), randn(1, MAX_LEN, kv, dh),
+                  randn(1, MAX_LEN, kv, dh), fmt, (1900, 1792), (128,), dn, es)
 
         # windowed_attention: whole-prompt sliding-window prefill
         s = MAX_LEN
         q, k, v = randn(1, s, h, dh), randn(1, s, kv, dh), randn(1, s, kv, dh)
-        qt = q.transpose(1, 2)
-        kt = k.repeat_interleave(group, dim=2).transpose(1, 2)
-        vt = v.repeat_interleave(group, dim=2).transpose(1, 2)
         smask = ((ki[None, :] <= ki[:, None]) & (ki[None, :] > ki[:, None] - WINDOW))[None, None]
         spairs = sum(min(WINDOW, i + 1) for i in range(s))
-        case("windowed_attention", f"B=1 S={s} W={WINDOW}", dn,
-             lambda: ops._cuda_windowed_attention(q, k, v, WINDOW),
-             lambda: windowed_attention_ref(q, k, v, WINDOW),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=smask),
-             attn_bound(1, s, h, kv, dh, s, spairs, es, dn), dn == "bfloat16",
-             bitwise=(lambda: ops._cuda_windowed_attention(q, k, v, 2 * s),
-                      lambda: ops._cuda_attention(q, k, v, causal=True)))
-        del q, k, v, qt, kt, vt
+        _flash_case(torch, flush, report, "windowed_attention", f"B=1 S={s} W={WINDOW}", dn,
+                    lambda: ops._cuda_windowed_attention(q, k, v, WINDOW),
+                    lambda: windowed_attention_ref(q, k, v, WINDOW),
+                    _library(torch, q.transpose(1, 2), k, v, (), smask, group),
+                    attn_bound(1, s, h, kv, dh, s, spairs, es, dn), dn == "bfloat16",
+                    bitwise=(lambda: ops._cuda_windowed_attention(q, k, v, 2 * s),
+                             lambda: ops._cuda_attention(q, k, v, causal=True)))
+        del q, k, v
     return report
 
 
@@ -980,213 +1028,8 @@ def phase_kernels_quant(torch, flush) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# the quantized KV cache: the flash kernel's quantized-KV form
+# the quantized KV cache: serving over int8 / e4m3 caches
 # --------------------------------------------------------------------------- #
-def _quantize_rows(torch, x, fmt: str):
-    """Codes of a (B, S, KV, Dh) cache with one amax scale a batch row (as
-    tests/test_quant_conformance.py quantizes its grid), written by the
-    model's cache write `quant_update`: (codes, (B,) float32 scales)."""
-    from repro_torch.kernels.quant import FP8_MAX, INT8_MAX, storage_dtype
-    from repro_torch.models.layers import quant_update
-
-    top = INT8_MAX if fmt == "int8" else FP8_MAX
-    scale = x.float().abs().amax(dim=(1, 2, 3)).clamp_min(1e-6) / top
-    return quant_update(x, scale, storage_dtype(fmt)), scale
-
-
-def _code_pools(torch, codes, page, positions, seed):
-    """Page pools (P, page, KV, Dh) of a row-quantized cache's codes with a
-    shuffled block table: row b's blocks up to positions[b] on distinct
-    pages, the rest on the park page 0, which holds POISON's code."""
-    b, s = codes.shape[:2]
-    n = s // page
-    perm = torch.randperm(b * n, generator=torch.Generator().manual_seed(seed)) + 1
-    table = perm.reshape(b, n).to(torch.int32)
-    pool = torch.empty((1 + b * n, page) + tuple(codes.shape[2:]), dtype=codes.dtype,
-                       device=codes.device)
-    pool[0] = torch.full(tuple(pool.shape[1:]), POISON, device=codes.device).to(codes.dtype)
-    pool[table.reshape(-1).long().cuda()] = codes.reshape(b * n, page, *codes.shape[2:])
-    for row, p in enumerate(positions):
-        table[row, p // page + 1:] = 0
-    return pool, table.cuda()
-
-
-def phase_kernels_kvquant(torch, flush) -> dict:
-    """The flash kernel's quantized-KV form (int8 and e4m3 caches, one fp32
-    scale a batch row) against its plain version at qwen's serve shapes:
-    decode B = 4 at positions 100/700/1600/2047 and chunks of C = 128 at
-    positions 1792 and 1900; contiguous, paged (page 128 and 16, park page
-    poisoned), windowed (W = 512; W >= kv_len bit-identical to no window)
-    and paged + windowed (dead pages parked); q fp32 and bf16.  Each case
-    within TOLS of the plain version, inside ATTN_ENVELOPE of the fp32
-    oracle on the unquantized cache, and two launches bit-identical.  The
-    library yardstick dequantizes the head-expanded codes (built outside
-    its timing) to q's dtype and calls SDPA, the dequantization included in
-    its time.  Returns the main-path cases (bf16; page 128) keyed by form."""
-    import torch.nn.functional as F
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention_ref import chunk_attention_ref, decode_attention_ref
-
-    cfg = get_config(ARCH)
-    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    group = h // kv
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    report = {}
-    positions = (100, 700, 1600, MAX_LEN - 1)
-    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    c = 128
-    ki = torch.arange(MAX_LEN, device="cuda")
-
-    def library(qt, kt, vt, ks, vs, mask):
-        def run():
-            kd = (kt.float() * ks.view(-1, 1, 1, 1)).to(qt.dtype)
-            vd = (vt.float() * vs.view(-1, 1, 1, 1)).to(qt.dtype)
-            return F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask)
-        return run
-
-    def case(key, label, dn, fmt, cuda_fn, plain_fn, oracle_fn, lib_fn, bnd, main_case,
-             bitwise=None):
-        _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fn, bnd,
-                    main_case, bitwise, (oracle_fn, ATTN_ENVELOPE[fmt]))
-
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).removeprefix("torch.")
-        es = torch.empty((), dtype=dtype).element_size()
-
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
-        keys = sum(p + 1 for p in positions)
-        wkeys = sum(min(WINDOW, p + 1) for p in positions)
-        dmask = (ki[None, :] <= pos[:, None])[:, None, None]
-        wmask = dmask & (ki[None, :] > (pos - WINDOW)[:, None])[:, None, None]
-        for fmt in ("int8", "fp8"):
-            tag = f"kv_{fmt}"
-            # decode: contiguous, windowed, paged (page 128 and 16), paged + windowed
-            q = randn(4, 1, h, dh)
-            qt = q.transpose(1, 2)
-            k, v = randn(4, MAX_LEN, kv, dh), randn(4, MAX_LEN, kv, dh)
-            (kc, ks), (vc, vs) = _quantize_rows(torch, k, fmt), _quantize_rows(torch, v, fmt)
-            kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2) for x in (kc, vc))
-            sb = 2 * 4 * 4                                        # the two scale rows
-            case(f"decode_attention/{tag}", f"B=4 Smax={MAX_LEN}", dn, fmt,
-                 lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, None, ks, vs),
-                 lambda: decode_attention_ref(q, kc, vc, pos, None, None, ks, vs),
-                 lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos),
-                 library(qt, kt, vt, ks, vs, dmask),
-                 attn_bound(4, 1, h, kv, dh, keys, keys, es, dn, sb, kv_esize=1),
-                 dn == "bfloat16")
-            case(f"decode_attention/{tag}+windowed", f"B=4 W={WINDOW} Smax={MAX_LEN}", dn, fmt,
-                 lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, WINDOW, ks, vs),
-                 lambda: decode_attention_ref(q, kc, vc, pos, None, WINDOW, ks, vs),
-                 lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos, None,
-                                              WINDOW),
-                 library(qt, kt, vt, ks, vs, wmask),
-                 attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn, sb, kv_esize=1),
-                 dn == "bfloat16",
-                 bitwise=(lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, 2 * MAX_LEN,
-                                                             ks, vs),
-                          lambda: ops._cuda_decode_attention(q, kc, vc, pos, None, None, ks,
-                                                             vs)))
-            del kt, vt
-            for page in (128, 16):
-                pk, table = _code_pools(torch, kc, page, positions, SEED + page)
-                pv, _ = _code_pools(torch, vc, page, positions, SEED + page)
-                kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
-                tb = table.numel() * 4 + sb
-                case(f"decode_attention/{tag}+paged", f"B=4 page={page} P={pk.shape[0]}", dn,
-                     fmt, lambda: ops._cuda_decode_attention(q, pk, pv, pos, table, None, ks, vs),
-                     lambda: decode_attention_ref(q, pk, pv, pos, table, None, ks, vs),
-                     lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos),
-                     library(qt, kt, vt, ks, vs, dmask),
-                     attn_bound(4, 1, h, kv, dh, keys, keys, es, dn, tb, kv_esize=1),
-                     dn == "bfloat16" and page == 128)
-                wt = table.clone()
-                for b, p in enumerate(positions):
-                    wt[b, :max(0, p - WINDOW) // page] = 0
-                case(f"decode_attention/{tag}+paged+windowed",
-                     f"B=4 page={page} W={WINDOW} dead parked", dn, fmt,
-                     lambda: ops._cuda_decode_attention(q, pk, pv, pos, wt, WINDOW, ks, vs),
-                     lambda: decode_attention_ref(q, pk, pv, pos, wt, WINDOW, ks, vs),
-                     lambda: decode_attention_ref(q.float(), k.float(), v.float(), pos, None,
-                                                  WINDOW),
-                     library(qt, kt, vt, ks, vs, wmask),
-                     attn_bound(4, 1, h, kv, dh, wkeys, wkeys, es, dn, tb, kv_esize=1),
-                     dn == "bfloat16" and page == 128)
-                del pk, pv, kt, vt
-            del q, k, v, kc, vc
-
-            # chunk C = 128: contiguous at 1792 and 1900; at 1792 paged, windowed,
-            # paged + windowed with the dead blocks parked
-            q = randn(1, c, h, dh)
-            qt = q.transpose(1, 2)
-            k, v = randn(1, MAX_LEN, kv, dh), randn(1, MAX_LEN, kv, dh)
-            (kc, ks), (vc, vs) = _quantize_rows(torch, k, fmt), _quantize_rows(torch, v, fmt)
-            kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2) for x in (kc, vc))
-            sb = 2 * 4
-            for cpos in (1792, 1900):
-                lim = cpos + torch.arange(c, device="cuda")[:, None]
-                cmask = (ki[None, :] <= lim)[None, None]
-                pairs = c * cpos + c * (c + 1) // 2
-                case(f"chunk_attention/{tag}", f"C={c} pos={cpos} Smax={MAX_LEN}", dn, fmt,
-                     lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, None, ks, vs),
-                     lambda: chunk_attention_ref(q, kc, vc, cpos, None, None, ks, vs),
-                     lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos),
-                     library(qt, kt, vt, ks, vs, cmask),
-                     attn_bound(1, c, h, kv, dh, cpos + c, pairs, es, dn, sb, kv_esize=1),
-                     dn == "bfloat16" and cpos == 1900)
-            cpos = 1792
-            lim = cpos + torch.arange(c, device="cuda")[:, None]
-            cmask = (ki[None, :] <= lim)[None, None]
-            cwmask = cmask & (ki[None, :] > lim - WINDOW)[None, None]
-            pairs = c * cpos + c * (c + 1) // 2
-            wpairs = sum(min(WINDOW, cpos + i + 1) for i in range(c))
-            wrows = cpos + c - max(0, cpos - WINDOW + 1)
-            case(f"chunk_attention/{tag}+windowed", f"C={c} pos={cpos} W={WINDOW}", dn, fmt,
-                 lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, WINDOW, ks, vs),
-                 lambda: chunk_attention_ref(q, kc, vc, cpos, None, WINDOW, ks, vs),
-                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos, None,
-                                             WINDOW),
-                 library(qt, kt, vt, ks, vs, cwmask),
-                 attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn, sb, kv_esize=1),
-                 dn == "bfloat16",
-                 bitwise=(lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, 2 * MAX_LEN,
-                                                            ks, vs),
-                          lambda: ops._cuda_chunk_attention(q, kc, vc, cpos, None, None, ks,
-                                                            vs)))
-            del kt, vt
-            pk, table = _code_pools(torch, kc, 128, (cpos + c - 1,), SEED + 3)
-            pv, _ = _code_pools(torch, vc, 128, (cpos + c - 1,), SEED + 3)
-            kt, vt = _gathered(torch, pk, table, group), _gathered(torch, pv, table, group)
-            tb = table.numel() * 4 + sb
-            case(f"chunk_attention/{tag}+paged", f"C={c} pos={cpos} page=128", dn, fmt,
-                 lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table, None, ks, vs),
-                 lambda: chunk_attention_ref(q, pk, pv, cpos, table, None, ks, vs),
-                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos),
-                 library(qt, kt, vt, ks, vs, cmask),
-                 attn_bound(1, c, h, kv, dh, cpos + c, pairs, es, dn, tb, kv_esize=1),
-                 dn == "bfloat16")
-            wt = table.clone()
-            wt[0, :max(0, cpos - WINDOW) // 128] = 0
-            case(f"chunk_attention/{tag}+paged+windowed",
-                 f"C={c} pos={cpos} W={WINDOW} dead parked", dn, fmt,
-                 lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, wt, WINDOW, ks, vs),
-                 lambda: chunk_attention_ref(q, pk, pv, cpos, wt, WINDOW, ks, vs),
-                 lambda: chunk_attention_ref(q.float(), k.float(), v.float(), cpos, None,
-                                             WINDOW),
-                 library(qt, kt, vt, ks, vs, cwmask),
-                 attn_bound(1, c, h, kv, dh, wrows, wpairs, es, dn, tb, kv_esize=1),
-                 dn == "bfloat16",
-                 bitwise=(lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table,
-                                                            2 * MAX_LEN, ks, vs),
-                          lambda: ops._cuda_chunk_attention(q, pk, pv, cpos, table, None, ks,
-                                                            vs)))
-            del q, k, v, kc, vc, pk, pv, kt, vt
-    return report
-
-
 def _quantized_tree(torch, cfg, fmt: str) -> dict:
     """The seeded weights of `cfg` (the draws `Model.init` makes with the
     serve phase's seed, so run A's weights for qwen) drawn on the card one
@@ -1948,7 +1791,6 @@ def main() -> int:
     cases.update(phase_kernel_forms(torch, flush))
     cases.update(phase_kernels_moe(torch, flush))
     cases.update(phase_kernels_quant(torch, flush))
-    cases.update(phase_kernels_kvquant(torch, flush))
     cases.update(phase_kernels_ssd(torch, flush))
     del flush
     phase_model(torch)

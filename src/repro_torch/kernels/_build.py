@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.quant import STORAGE_DTYPES
+
 __all__ = ["CODE_FORMATS", "LAUNCHES", "library", "check", "check_layout", "dtype_code",
            "stream_of"]
 
@@ -38,7 +40,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the 1-byte code formats of quantized weights and KV caches (common.cuh)
-CODE_FORMATS = {torch.int8: 0, torch.float8_e4m3fn: 1}
+CODE_FORMATS = {STORAGE_DTYPES["int8"]: 0, STORAGE_DTYPES["fp8"]: 1}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()

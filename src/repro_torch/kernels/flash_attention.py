@@ -36,8 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention_ref import (QUANT_DTYPES, check_scales,
-                                                     masked_attention_ref)
+from repro_torch.kernels.flash_attention_ref import check_scales, masked_attention_ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
@@ -122,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _build.dtype_code(q, "flash_attention")
     check_scales(k, k_scale, v_scale)
     quantized = k_scale is not None
-    if quantized and (k.dtype not in QUANT_DTYPES or v.dtype != k.dtype):
+    if quantized and (k.dtype not in _build.CODE_FORMATS or v.dtype != k.dtype):
         raise ValueError(f"flash_attention: scales with a {k.dtype} / {v.dtype} cache "
                          "(int8 or float8_e4m3fn codes, one format)")
     if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):

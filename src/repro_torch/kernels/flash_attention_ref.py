@@ -31,13 +31,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["QUANT_DTYPES", "attention_ref", "check_scales", "chunk_attention_ref",
+from repro_torch.kernels.quant import STORAGE_DTYPES
+
+__all__ = ["attention_ref", "check_scales", "chunk_attention_ref",
            "decode_attention_ref", "masked_attention_ref", "windowed_attention_ref"]
 
 _NEG = -1e30
-
-# element types of a quantized KV cache (read with its k_scale / v_scale)
-QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def _plain(q, k, v, causal, scale):
@@ -139,7 +138,7 @@ def check_scales(k_cache: torch.Tensor, k_scale, v_scale) -> None:
     int8 / fp8 cache without them, is refused."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("quantized KV needs both k_scale and v_scale")
-    if k_scale is None and k_cache.dtype in QUANT_DTYPES:
+    if k_scale is None and k_cache.dtype in STORAGE_DTYPES.values():
         raise ValueError(f"a {k_cache.dtype} KV cache needs k_scale and v_scale")
 
 

@@ -20,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["EPS", "FORMATS", "FP8_DTYPE", "FP8_MAX", "INT8_MAX", "RAW_BITS", "dequantize",
-           "quantize", "quantize_per_channel", "storage_dtype"]
+__all__ = ["EPS", "FORMATS", "FP8_DTYPE", "FP8_MAX", "INT8_MAX", "RAW_BITS", "STORAGE_DTYPES",
+           "dequantize", "format_of", "quantize", "quantize_per_channel", "storage_dtype",
+           "to_codes"]
 
 INT8_MAX = 127.0
 # max normal of float8_e4m3fn (S.1110.111 = 448)
@@ -33,6 +34,9 @@ FORMATS = ("int8", "fp8")
 
 FP8_DTYPE = torch.float8_e4m3fn
 
+# each format's storage dtype (1 byte an element)
+STORAGE_DTYPES = {"int8": torch.int8, "fp8": FP8_DTYPE}
+
 # dtypes numpy has only through ml_dtypes (the JAX package's arrays, a
 # checkpoint's dtype strings): read as raw bits of that width, then viewed
 # as the torch dtype
@@ -42,11 +46,17 @@ RAW_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
 
 def storage_dtype(fmt: str) -> torch.dtype:
     """The storage dtype of a format (1 byte each)."""
-    if fmt == "int8":
-        return torch.int8
-    if fmt == "fp8":
-        return FP8_DTYPE
-    raise ValueError(f"unknown quantization format {fmt!r}")
+    if fmt not in STORAGE_DTYPES:
+        raise ValueError(f"unknown quantization format {fmt!r}")
+    return STORAGE_DTYPES[fmt]
+
+
+def format_of(dtype: torch.dtype) -> str:
+    """The format whose codes are stored as `dtype`."""
+    for fmt, dt in STORAGE_DTYPES.items():
+        if dt == dtype:
+            return fmt
+    raise ValueError(f"{dtype} is not a quantization storage dtype")
 
 
 def _scale_from_amax(amax: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -57,7 +67,9 @@ def _scale_from_amax(amax: torch.Tensor, fmt: str) -> torch.Tensor:
     return (torch.clamp_min(amax, EPS) / top).to(torch.float32)
 
 
-def _codes(y: torch.Tensor, fmt: str) -> torch.Tensor:
+def to_codes(y: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Scaled float32 values `y` onto the format's grid: int8 rounds half
+    to even and clips to +-127, fp8 clips to +-448 and casts."""
     if fmt == "int8":
         return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
     return torch.clamp(y, -FP8_MAX, FP8_MAX).to(FP8_DTYPE)
@@ -70,14 +82,14 @@ def quantize(x: torch.Tensor, fmt: str = "int8", scale=None):
         scale = _scale_from_amax(x.abs().amax(), fmt)
     else:
         scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    return _codes(x.to(torch.float32) / scale, fmt), scale
+    return to_codes(x.to(torch.float32) / scale, fmt), scale
 
 
 def quantize_per_channel(x: torch.Tensor, axis: int = -1, fmt: str = "int8"):
     """Per-channel quantization along ``axis``: ``(q, scale)`` where
     ``scale`` has ``x``'s shape with ``axis`` removed."""
     scale = _scale_from_amax(x.abs().amax(dim=axis, keepdim=True), fmt)
-    return _codes(x.to(torch.float32) / scale, fmt), scale.squeeze(axis)
+    return to_codes(x.to(torch.float32) / scale, fmt), scale.squeeze(axis)
 
 
 def dequantize(q: torch.Tensor, scale, axis: int = -1,

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.quant import FP8_MAX, INT8_MAX, dequantize
+from repro_torch.kernels.quant import dequantize, format_of, to_codes
 from repro_torch.models.schema import LeafSpec
 
 __all__ = ["rotary", "norm_schema", "norm_apply", "attention_schema", "attention_apply",
@@ -141,10 +141,7 @@ def quant_update(upd: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
     dequantization, as JAX's ``layers._quant_update``."""
     s = torch.as_tensor(scale, dtype=torch.float32, device=upd.device)
     s = s.reshape(tuple(s.shape) + (1,) * (upd.dim() - s.dim()))
-    y = upd.to(torch.float32) / s
-    if dtype == torch.int8:
-        return torch.clamp(torch.round(y), -INT8_MAX, INT8_MAX).to(torch.int8)
-    return torch.clamp(y, -FP8_MAX, FP8_MAX).to(dtype)
+    return to_codes(upd.to(torch.float32) / s, format_of(dtype))
 
 
 def _quantized_kv(cache: dict, k: torch.Tensor, v: torch.Tensor):
