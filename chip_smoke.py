@@ -46,9 +46,12 @@ Phases, each one printed line per case, each raising on failure:
                run with phase 3): quant_matmul against quant_matmul_ref at
                the MLP and LM-head shapes (T = 4 decode, 128 a chunk, 1 the
                chunk's LM head, 1316 a whole prompt, 600 the model phase's
-               prefill), the quantization grid's ragged shapes (also inside
-               QMM_ENVELOPE of the fp32 product) and three split
-               contractions, fp32 and bf16 x, each launch pair torch.equal;
+               prefill; bf16 x with T > 4 on the tensor-core kernel, whose
+               row and column edges 129 and 256 rows cross), the
+               quantization grid's ragged shapes (also inside QMM_ENVELOPE
+               of the fp32 product) and three split contractions, fp32 and
+               bf16 x, each launch pair torch.equal, and a byte table
+               through an identity x (every code decodes exactly);
                then 2 layers fp32 in storage form, CUDA binding against
                plain for prefill (with where the two depart, printed),
                prefill_into and decode, and whole-prompt against chunked
@@ -57,7 +60,9 @@ Phases, each one printed line per case, each raising on failure:
                (15.19 GB of codes and scales): run Q8 int8 contiguous and
                one whole-prompt Model.prefill, run Q8P int8 paged on 25
                pages (its tokens must equal Q8's), run QF8 fp8 contiguous;
-               every step launches quant_matmul 3 x 48 + 1 times.
+               every step launches quant_matmul 3 x 48 + 1 times (a
+               prefill step's 3 x 48 on the tensor-core kernel, the rest
+               on the narrow one: the kernels line counts each apart).
                The quantized KV cache (the flash kernel's quantized-KV
                form is held against its plain version with the other
                forms, phase 3): the 2-layer model phase again over a cache
@@ -134,6 +139,23 @@ def _qmm_per_step(layers: int) -> int:
     """quant_matmul launches a step of a quantized dense model: w_gate, w_in
     and w_out of every layer, and the LM head."""
     return 3 * layers + 1
+
+
+def _qmm_by_kernel(run: dict, layers: int) -> dict:
+    """A bf16 quantized serve run's quant_matmul launches by the kernel each
+    took (quant_matmul.cu picks it by x's dtype and rows: the tensor-core
+    kernel above 4 rows, the narrow one at 4 or fewer).  A prefill step's
+    3 x layers MLP matmuls have the chunk's rows and its LM head the last
+    token's one; a decode tick's matmuls have one row a slot."""
+    (pre, dec), (chunk, slots) = run["steps"], run["rows"]
+    if not slots <= 4 < chunk:
+        fail("quant-serve", f"chunk {chunk} / {slots} slots: the kernel split below assumes "
+                            f"a chunk of more than 4 rows and at most 4 slots")
+    by_kernel = {"tensor_core": pre * 3 * layers, "narrow": pre + dec * _qmm_per_step(layers)}
+    if sum(by_kernel.values()) != run["launches"]["quant_matmul"]:
+        fail("quant-serve", f"quant_matmul launches {run['launches']['quant_matmul']} are not "
+                            f"{by_kernel}")
+    return by_kernel
 
 SEED = 0
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_attention_conformance.py
@@ -791,10 +813,12 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
               f"(park + {int(stats['pages-capacity'])}), allocated peak "
               f"{int(stats['pages-allocated-peak'])}, mean allocated "
               f"{stats['pages-allocated-mean']:.2f} / written {stats['pages-written-mean']:.2f}")
+    median_ms = {}
     for kind, n in (("prefill", steps[0]), ("decode", steps[1])):
         ts = sorted(step_s[kind][:n])
+        median_ms[kind] = ts[len(ts) // 2] * 1e3
         print(f"[serve] {label}: {kind} step (host clock, to logits on the host): median "
-              f"{ts[len(ts) // 2] * 1e3:.1f} ms, max {ts[-1] * 1e3:.1f} ms over {n} steps, "
+              f"{median_ms[kind]:.1f} ms, max {ts[-1] * 1e3:.1f} ms over {n} steps, "
               f"{sum(ts):.2f} s in all")
     print(f"[serve] {label}: launches in the serve run ({steps[0]} prefill + {steps[1]} "
           f"decode steps): {launches}")
@@ -818,7 +842,8 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
-            "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak}
+            "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak,
+            "median_ms": median_ms, "rows": (eng.chunk, eng.slots)}
 
 
 def phase_serve(torch) -> dict:
@@ -947,15 +972,16 @@ def phase_serve_modes(torch, contiguous: dict) -> dict:
 def phase_kernels_quant(torch, flush) -> dict:
     """quant_matmul against quant_matmul_ref at qwen's MLP and LM-head
     shapes (decode T = 4, a 128-token chunk, the LM head of one token, a
-    1316-token whole prompt, the model phase's 600-row prefill), the
+    1316-token whole prompt, the model phase's 600-row prefill, and 129 and
+    256 rows across the tensor-core tile's row and column edges), the
     quantization grid's ragged shapes (also inside QMM_ENVELOPE of the fp32
     product) and three shapes with a split contraction, after the
     kernels' occupancy as the wrapper reads it; x fp32 and bf16, int8 and
-    fp8 codes, every launch pair
-    torch.equal.  Times at the serving shapes; the library yardstick is
-    torch.matmul on the dense weight in x's dtype (what the codes replace,
-    not the same function).  Returns the main-path case (T = 4, bf16, int8,
-    5120 x 13824)."""
+    fp8 codes, every launch pair torch.equal; then the byte table.  Times
+    at the serving shapes; the library yardstick is torch.matmul on the
+    dense weight in x's dtype (what the codes replace, not the same
+    function).  Returns the main-path cases (bf16, int8, 5120 x 13824): T =
+    4 (a decode tick) and T = 128 (a prefill chunk)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.quant import quantize_per_channel
     from repro_torch.kernels.quant_matmul import occupancy, plan, quant_matmul
@@ -971,10 +997,13 @@ def phase_kernels_quant(torch, flush) -> dict:
              ("chunk w_out", 128, f, d, True), ("chunk LM head", 1, d, v, True),
              ("whole prompt w_in", 1316, d, f, True), ("whole prompt w_out", 1316, f, d, True),
              # the model phase's prefill B=2 S=300: 18 full row tiles and one of 24 rows
-             ("model prefill w_in", 600, d, f, False), ("model prefill w_out", 600, f, d, False)]
+             ("model prefill w_in", 600, d, f, False), ("model prefill w_out", 600, f, d, False),
+             # the tensor-core tile's edges: one live row in the second row tile; a
+             # 16-column second column tile over a contraction ending 40 rows into a step
+             ("row edge", 129, d, f, False), ("column edge", 256, 1000, 144, False)]
     cases += [("grid", t, dd, ff, False) for t, dd, ff in QMM_GRID]
     cases += [("split", t, dd, ff, False) for t, dd, ff in QMM_SPLIT]
-    for t in (4, 600):
+    for t in (4, 128, 600, 1316):
         for dtype, code in ((0, 0), (1, 0), (0, 1), (1, 1)):
             rows, resident, sms = occupancy(torch.cuda.current_device(), dtype, code, t)
             print(f"[kernels] quant_matmul T = {t}, dtype code {dtype}, code format {code}: "
@@ -1012,19 +1041,51 @@ def phase_kernels_quant(torch, flush) -> dict:
                     continue
                 dense_w = (qw.float() * scale).to(dtype)
                 nbytes = t * din * es + din * dout + dout * 4 + t * dout * es
-                _record(report, "quant_matmul", full + f" splits {plan(x, qw)[0]}", dn,
+                key = "quant_matmul/chunk_w_in" if label == "chunk w_in" else "quant_matmul"
+                _record(report, key, full + f" splits {plan(x, qw)[0]}", dn,
                         err, time_ms(torch, lambda: quant_matmul(x, qw, scale), flush),
                         time_ms(torch, lambda: quant_matmul_ref(x, qw, scale), flush),
                         time_ms(torch, lambda: torch.matmul(x, dense_w), flush),
                         bound_ms(nbytes, 2 * t * din * dout,
                                  PEAK_BF16_TC if dn == "bfloat16" else PEAK_FP32),
-                        dn == "bfloat16" and fmt == "int8" and label == "decode w_in")
+                        dn == "bfloat16" and fmt == "int8"
+                        and label in ("decode w_in", "chunk w_in"))
                 del dense_w
             del qw, scale
         print(f"[kernels] quant_matmul {label} [{din}, {dout}]: every case inside TOLS, "
               "bit-identical over two launches")
         del w
+    _qmm_byte_table(torch)
     return report
+
+
+def _qmm_byte_table(torch) -> None:
+    """Every code decodes exactly: x the identity (256 rows, so bf16 takes
+    the tensor-core kernel) against a (256, 16) code table holding each
+    byte pattern in every column (e4m3's two NaN patterns, which the
+    quantizer never writes, replaced by 0); each output is one code times
+    its column's scale, so the kernel must equal quant_matmul_ref bit for
+    bit."""
+    from repro_torch.kernels.quant import STORAGE_DTYPES
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = torch.arange(256, device="cuda")[:, None]
+    table = ((rows + 7 * torch.arange(16, device="cuda")[None, :]) % 256).to(torch.uint8)
+    scale = torch.rand(16, generator=gen, device="cuda") + 0.5
+    for fmt, qdt in STORAGE_DTYPES.items():
+        codes = table.clone()
+        if fmt == "fp8":
+            codes[(codes == 0x7F) | (codes == 0xFF)] = 0
+        codes = codes.view(qdt)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.eye(256, device="cuda", dtype=dtype)
+            got = quant_matmul(x, codes, scale)
+            if not torch.equal(got, quant_matmul_ref(x, codes, scale)):
+                fail("kernels", f"quant_matmul byte table {fmt} {dtype}: a code decodes inexactly")
+    print("[kernels] quant_matmul byte table: every int8 code and every finite e4m3 code "
+          "decodes exactly, fp32 and bf16 x")
 
 
 # --------------------------------------------------------------------------- #
@@ -1294,6 +1355,14 @@ def phase_serve_quant(torch, contiguous: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(Q8=q8, Q8P=q8p, QF8=qf8, K8=k8, K8P=k8p, KF8=kf8)
+    runs["Q8 by kernel"] = _qmm_by_kernel(q8, n)
+    print(f"[quant-serve] Q8: quant_matmul launches by kernel {runs['Q8 by kernel']}")
+    a_pre, a_dec = contiguous["median_ms"]["prefill"], contiguous["median_ms"]["decode"]
+    for name in ("Q8", "Q8P", "QF8", "K8", "K8P", "KF8"):
+        pre, dec = runs[name]["median_ms"]["prefill"], runs[name]["median_ms"]["decode"]
+        print(f"[quant-serve] {name}: median prefill step {pre:.1f} ms, {pre / a_pre:.2f}x run "
+              f"A's {a_pre:.1f}; median decode step {dec:.1f} ms, {dec / a_dec:.2f}x A's "
+              f"{a_dec:.1f} (host clock; informational)")
     runtime.cleanup()
     return runs
 
@@ -1830,7 +1899,11 @@ def main() -> int:
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
                 ("moe_gmm", moe["M"], "moe_gmm"),
-                ("quant_matmul", quant["Q8"], "quant_matmul")]
+                ("quant_matmul", {"launches": {"quant_matmul": quant["Q8 by kernel"]["narrow"]}},
+                 "quant_matmul"),
+                ("quant_matmul/chunk_w_in",
+                 {"launches": {"quant_matmul": quant["Q8 by kernel"]["tensor_core"]}},
+                 "quant_matmul")]
     for run, form in (("K8", "kv_int8"), ("K8P", "kv_int8+paged"), ("KF8", "kv_fp8")):
         for op in ("chunk_attention", "decode_attention"):
             entries.append((f"{op}/{form}", quant[run], op))

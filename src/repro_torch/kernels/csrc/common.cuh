@@ -2,8 +2,8 @@
 //
 // The kernels read and write either float32 or bfloat16 and do all their
 // arithmetic in float32, as the Pallas kernels they replace do; quantized
-// weights and KV caches are 1-byte int8 or e4m3 codes, converted to float32
-// exactly.  Only the conversion intrinsics are used, so the sources compile
+// weights and KV caches are 1-byte int8 or e4m3 codes, converted to float32,
+// or for a tensor-core product to bf16, exactly.  Only the conversion intrinsics are used, so the sources compile
 // under PyTorch's extension flags (-D__CUDA_NO_BFLOAT16_CONVERSIONS__ and
 // friends).
 #pragma once
@@ -93,6 +93,42 @@ __device__ __forceinline__ void e4m3x4_to_float(uint32_t w, float* out) {
     out[2 * j] = half_bits_to_float(h.x);
     out[2 * j + 1] = half_bits_to_float(h.y);
   }
+}
+
+// (a & b) | c in one instruction (the compiler splits it when b and c are
+// both literals).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// Two codes, the low bytes of t's two 16-bit halves (bits 8..15 and 24..31
+// are ignored), to a bf16 pair (low half first), exactly, with no
+// conversion instruction: every int8 code and every finite e4m3 value is a
+// bf16.
+//
+// int8 c = l - 128 s (l its low 7 bits, s its sign bit): bf16 0x4300 | l
+// is 128 + l, bf16 0xC300 | s << 7 is -(128 + 128 s), and their sum (one
+// bf16x2 FMA by 1) is exact.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t t) {
+  const uint32_t lo = and_or(t, 0x007F007Fu, 0x43004300u);   // 128 + l
+  const uint32_t nhi = and_or(t, 0x00800080u, 0xC300C300u);  // -(128 + 128 s)
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(lo), "r"(0x3F803F80u), "r"(nhi));
+  return r;
+}
+
+// e4m3 s.eeee.mmm: the sign to bf16's sign and eeee.mmm to bits 10..4 give
+// the bf16 2^-120 times the code (a normal bf16 for a normal code, a
+// subnormal one for a subnormal code); times 2^120 (0x7B80, plus -0) it
+// is exact.  The two NaN patterns (0x7F, 0xFF), which the quantizer never
+// writes, would read as +-480.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t t) {
+  const uint32_t v = and_or(t << 8, 0x80008000u, (t << 4) & 0x07F007F0u);
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(v), "r"(0x7B807B80u), "r"(0x80008000u));
+  return r;
 }
 
 // 16 one-byte codes a vector.

@@ -5,14 +5,31 @@ Replaces the Pallas TPU kernel ``repro/kernels/quant_matmul.py::quant_matmul``:
 (D, F) int8 or float8_e4m3fn codes and one float32 scale an output
 channel (the checkpoint's per-channel layout); fp32 sums, y in x's dtype.
 
+The library picks one of three kernels by x's dtype and T:
+
+  * bf16 x, T > 4 (prefill chunks, whole prompts): bf16 tensor cores
+    (wgmma) on 128-row tiles, the codes copied as 1 byte and decoded to
+    bf16 in shared memory.  Every int8 code and every finite e4m3 value is
+    exact in bf16, and a product of two bf16 values is exact in fp32, so
+    the result is the fp32 product up to the order of the sums.  Its
+    products and its decoding share the SM's shared memory, which bounds
+    it (a 128-token chunk about as fast as ``torch.matmul`` on the dense
+    bf16 weight).
+  * fp32 x, T > 4: fp32 FMAs on 32-row tiles; TF32 tensor cores would
+    round x past fp32's tolerance.
+  * T <= 4 (decode ticks, one token's LM head): the codes streamed into
+    registers and multiplied with FMAs; bound by reading the codes, which
+    a tensor-core tile of 64 rows would not read faster.
+
 The arguments are checked as the kernel needs them on either device;
 then a CUDA tensor launches the kernel (or raises) and a CPU tensor takes
 the plain version, `quant_matmul_ref`.  Where the grid would leave the
 card half empty (a decode tick's few rows against a narrow weight), the
 contraction is split into ranges (`splits`) whose partial sums a second
 pass adds in a fixed order: the same bits on every launch.  The split
-reads the kernel's row tile, its blocks resident on an SM and the card's
-SM count from the library (`occupancy`), which asks the CUDA runtime.
+reads the row tile of the kernel a launch takes, its blocks resident on
+an SM and the card's SM count from the library (`occupancy`), which asks
+the CUDA runtime.
 """
 
 from __future__ import annotations
@@ -27,7 +44,7 @@ from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 
 __all__ = ["occupancy", "plan", "quant_matmul", "splits"]
 
-_BN, _BK = 128, 64            # the kernel's column tile and contraction step
+_BN, _BK = 128, 64            # every kernel's column tile and contraction step
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -52,7 +69,8 @@ def splits(t: int, d: int, f: int, rows: int, resident: int, sms: int) -> tuple[
 @functools.lru_cache(maxsize=1024)
 def occupancy(device: int, dtype: int, code: int, t: int) -> tuple[int, int, int]:
     """(row tile, blocks resident on an SM, SMs) of the kernel a launch of
-    `t` rows on card `device` takes, from the CUDA runtime."""
+    `t` rows of x in `dtype` (a dtype code) on card `device` takes, from the
+    CUDA runtime."""
     lib = _build.library()
     vals = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(device):

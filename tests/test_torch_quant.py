@@ -62,7 +62,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant as tq
 from repro_torch.kernels.ops import _NATIVES as TORCH_NATIVES
 from repro_torch.kernels.ops import PORTED_OPS
-from repro_torch.kernels.quant_matmul import quant_matmul, splits
+from repro_torch.kernels import quant_matmul as qmm_module
+from repro_torch.kernels.quant_matmul import plan, quant_matmul, splits
 from repro_torch.kernels.quant_matmul_ref import quant_matmul_ref
 from repro_torch.launch.bundle import make_bundle
 from repro_torch.launch.serve import Request, Server
@@ -278,6 +279,11 @@ def test_quant_matmul_off_the_cpu_launches_or_counts_nothing(monkeypatch):
     (4, 13824, 5120, 4, 3, 132, (9, 1536)),     # more blocks resident: more ranges
     (7, 48, 32, 32, 3, 132, (1, 64)),
     (5, 0, 16, 32, 3, 132, (1, 64)),
+    # bf16 x with T > 4 takes the tensor-core kernel: 128-row tiles, one block an SM
+    (128, 5120, 13824, 128, 1, 132, (1, 5120)),   # prefill chunk, w_in: 108 tiles
+    (128, 13824, 5120, 128, 1, 132, (3, 4608)),   # prefill chunk, w_out: 40 tiles
+    (1316, 5120, 13824, 128, 1, 132, (1, 5120)),  # whole prompt, w_in: 1188 tiles
+    (1316, 13824, 5120, 128, 1, 132, (1, 13824)),  # whole prompt, w_out: 440 tiles
 ])
 def test_contraction_splits_cover_d_in_whole_steps(t, d, f, rows, resident, sms, want):
     n, kchunk = splits(t, d, f, rows, resident, sms)
@@ -288,6 +294,69 @@ def test_contraction_splits_cover_d_in_whole_steps(t, d, f, rows, resident, sms,
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+@pytest.mark.parametrize("x_dtype, rows", [(torch.float32, 32), (torch.bfloat16, 128)])
+def test_plan_takes_the_row_tile_of_the_kernel_x_dtype_launches(monkeypatch, x_dtype, rows):
+    """The split is planned from the occupancy of the kernel the launch
+    takes, asked for by x's dtype: fp32 x keeps the 32-row FMA kernel,
+    bf16 x (T > 4) the 128-row tensor-core kernel.  The query is stubbed
+    with an H100's answers (meta tensors stand in for the card's)."""
+    answers = {0: (32, 3, 132), 1: (128, 1, 132)}   # by dtype code, T > 4
+    asked = []
+
+    def query(device, dtype, code, t):
+        asked.append((device, dtype, code, t))
+        return answers[dtype]
+
+    monkeypatch.setattr(qmm_module, "occupancy", query)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    x = torch.empty(128, 13824, dtype=x_dtype, device="meta")
+    qw = torch.empty(13824, 5120, dtype=torch.int8, device="meta")
+    assert plan(x, qw) == splits(128, 13824, 5120, rows, *answers[_build.dtype_code(x, "")][1:])
+    assert asked == [(0, _build.dtype_code(x, ""), 0, 128)]
+    assert answers[asked[0][1]][0] == rows
+
+
+def _bf16_bits_to_float(bits):
+    """float32 values of bf16 bit patterns (uint16 -> the high half of a float32)."""
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def _kernel_decode(fmt, codes):
+    """The tensor-core kernel's decode (common.cuh, int8x2_to_bf16x2 and
+    e4m3x2_to_bf16x2), emulated bit for bit: two codes at bits 0-7 and
+    16-23 of a word, masked and or-ed into a bf16 pair, then one exact
+    bf16x2 FMA.  Returns float64."""
+    b = np.asarray(codes, np.uint32)
+    t = b | (b << 16)                                  # the code in both halves
+    lo16 = lambda w: (w & 0xFFFF).astype(np.uint16)
+    if fmt == "int8":
+        lo = (t & 0x007F007F) | 0x43004300             # 128 + l
+        nhi = (t & 0x00800080) | 0xC300C300            # -(128 + 128 s)
+        return (_bf16_bits_to_float(lo16(lo)).astype(np.float64)
+                + _bf16_bits_to_float(lo16(nhi)).astype(np.float64))
+    v = ((t << 8) & 0x80008000) | ((t << 4) & 0x07F007F0)
+    return _bf16_bits_to_float(lo16(v)).astype(np.float64) * 2.0 ** 120
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_every_code_is_exact_in_bf16_and_in_the_kernel_decode(fmt):
+    """What the tensor-core kernel rests on: every int8 code (-128 .. 127)
+    and every finite e4m3 bit pattern survives code -> bf16 -> float32
+    unchanged, and the kernel's bit-level decode gives that value (a bf16,
+    so its product with a bf16 activation is exact in fp32)."""
+    bits = np.arange(256, dtype=np.uint8)
+    if fmt == "fp8":
+        bits = bits[(bits & 0x7F) != 0x7F]            # the two NaN patterns
+    codes = torch.from_numpy(bits).view(tq.STORAGE_DTYPES[fmt])
+    want = codes.float()
+    assert torch.isfinite(want).all() and len(torch.unique(want)) == len(bits) - (fmt == "fp8")
+    assert torch.equal(codes.to(torch.bfloat16).float(), want)
+    got = _kernel_decode(fmt, bits)
+    assert np.array_equal(got, want.double().numpy())
+    assert np.array_equal(np.signbit(got), np.signbit(want.numpy()))   # -0.0 stays -0.0
+    assert torch.equal(torch.from_numpy(got).float().bfloat16().float(), want)   # a bf16 value
 
 
 # ---------------------------------------------------------------------------
