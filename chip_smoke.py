@@ -25,7 +25,14 @@ Phases, each one printed line per case, each raising on failure:
                their library yardstick dequantizes the codes once at KV
                width and calls SDPA, with enable_gqa or over the heads
                expanded, whichever is faster), and the windowed_attention
-               op.
+               op; then the tensor-core kernel's edges (bf16 q, Sq = 17,
+               the 36-row last chunk of request 0, 129 rows, the whole
+               1316-token prompt, Dh = 64, a paged chunk at page 16
+               bit-identical to the contiguous one, W >= kv_len, int8 and
+               e4m3 caches; each also within EDGE_ROW_RTOL row by row, and
+               on the tensor-core kernel as the library reports it) and
+               each flash instance's kernel, block and occupancy as the
+               library and the CUDA runtime report them.
   4. model   — full width, 2 layers, fp32: logits of the CUDA binding
                against the plain binding for prefill, prefill_into with a
                partial last chunk, and decode with a parked slot.
@@ -37,10 +44,15 @@ Phases, each one printed line per case, each raising on failure:
                layout needs); run D paged with window 512 on 21 pages (the
                lease cap, 5 pages a request).  Launch counts are reset just
                before each run and read just after; each must have launched
-               exactly the kernels its steps need.  B's tokens must equal
-               A's and D's E's.  The whole prefill through the plain binding
-               is printed beside it for scale, and windowed_attention runs
-               once through the deployed binding.
+               exactly the kernels its steps need; each attention run
+               prints its flash launches by kernel as the library reported
+               them at each launch, and fails unless its bf16 chunks of 128
+               took the tensor-core kernel and its decode ticks the FMA
+               kernel.  B's
+               tokens must equal A's and D's E's.  The whole prefill
+               through the plain binding is printed beside it for scale,
+               both timed (host clock, synchronized, median of 3), and
+               windowed_attention runs once through the deployed binding.
   6. quant   — the quantized-weight path, qwen2.5-14b with int8 or fp8
                weight codes and per-channel fp32 scales (its kernel cases
                run with phase 3): quant_matmul against quant_matmul_ref at
@@ -111,7 +123,8 @@ Phases, each one printed line per case, each raising on failure:
                exactly prefill steps x 48 ssd_scan (none in decode, which
                is plain code), steps x 49 rmsnorm and no attention.
 
-The line before the last is the kernels JSON; the last line is
+The line before the last is the kernels JSON (a flash entry also gives
+its launches by kernel, as the library reported them); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
@@ -157,11 +170,36 @@ def _qmm_by_kernel(run: dict, layers: int) -> dict:
                             f"{by_kernel}")
     return by_kernel
 
+
+def _flash_by_kernel(run: dict, op: str, want: str | None = None) -> dict:
+    """A run's launches of flash op `op` by the kernel each took, as the
+    library reported it at the launch (`_build.KERNEL_LAUNCHES`, reset
+    with the op counts before the run and read just after).  Fails unless
+    they add up to the op's count, or, with `want`, unless every one took
+    the kernel `want`."""
+    from repro_torch.kernels.flash_attention import KERNELS
+
+    total = run["launches"].get(op, 0)
+    by_kernel = {k: run["kernel_launches"].get((op, k), 0) for k in KERNELS}
+    if sum(by_kernel.values()) != total:
+        fail("serve", f"{op} launches {total} are not {by_kernel}")
+    if want is not None and by_kernel[want] != total:
+        fail("serve", f"{op} launches by kernel {by_kernel}: not all on the {want} kernel")
+    return by_kernel
+
+
 SEED = 0
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_attention_conformance.py
 POISON = 50.0       # park-page fill, as tests/test_attention_conformance.py
 MAX_LEN = 2048      # the serve phase's slot length: 16 pages of 128
 WINDOW = 512        # the windowed serve runs' and kernel cases' W
+# the tensor-core kernel's edge cases, beside TOLS: over every (batch,
+# query, head) row, max |cuda - plain| / max |plain| over its Dh outputs,
+# at most 4 bf16 ulps of the row's largest output.  TOLS's 2e-2 is half a
+# typical output at 2000 keys; a 64-key tile dropped or counted twice
+# moves some row by far more than this limit (tests/test_torch_flash_tc.py
+# plants both faults in the kernel's emulation)
+EDGE_ROW_RTOL = 4 * 2.0 ** -7
 MODEL_RTOL = 1e-3   # phase 4: max |cuda - plain| / max |plain| over the logits
 SSM_MODEL_RTOL = 1e-4   # the SSM model phase's limit, the same measure
 UNIT_SCALE_RATIO = 2.0  # ssd_scan at unit scale: kernel's / plain's distance to float64
@@ -222,6 +260,19 @@ def time_ms(torch, fn, flush, iters: int = 20) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _median_ms(torch, fn, n: int = 3) -> float:
+    """Median host-clock time of fn() over n calls, each between device
+    synchronizations."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
 
 
 def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -397,24 +448,39 @@ def phase_kernels(torch, flush) -> dict:
     return report
 
 
+def _row_rel_err(got, want) -> float:
+    """Max over the (..., Dh) rows of max |got - want| / max |want| over
+    the row."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    return (diff / want.float().abs().amax(dim=-1).clamp_min(1e-30)).max().item()
+
+
 def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fns, bnd,
-                main_case, bitwise=None, envelope=None):
+                main_case, bitwise=None, envelope=None, row_rtol=None):
     """One flash-kernel case: cuda_fn() finite, within TOLS of plain_fn()
-    and equal to itself on a second launch; with `bitwise` (a launch at
-    W >= kv_len and its unwindowed counterpart) the two bit-identical; with
-    `envelope` ((oracle_fn, limit)) within `limit` of oracle_fn().  Then
-    timed and recorded (`_record`), the library time the fastest of
-    `lib_fns`."""
+    and equal to itself on a second launch; with `row_rtol`, within it of
+    plain_fn() row by row (`_row_rel_err`); with `bitwise` (two launches,
+    by default one at W >= kv_len and its unwindowed counterpart, and
+    optionally what their equality shows) the two bit-identical; with
+    `envelope` ((oracle_fn, limit)) within `limit` of oracle_fn().  Then,
+    with `lib_fns`, timed and recorded (`_record`), the library time the
+    fastest of `lib_fns`; without, only its error is printed."""
     full = f"{key} {label}"
     got = cuda_fn()
     if not torch.isfinite(got.float()).all():
         fail("kernels", f"{full}: non-finite output on a live row")
-    err = _check("kernels", full, got, plain_fn(), dn)
+    want = plain_fn()
+    err = _check("kernels", full, got, want, dn)
     again = cuda_fn()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         fail("kernels", f"{full} {dn}: two launches differ")
     notes = ["two launches equal"]
+    if row_rtol is not None:
+        rel = _row_rel_err(got, want)
+        if rel > row_rtol:
+            fail("kernels", f"{full} {dn}: row-relative error {rel:.4g} above {row_rtol:.4g}")
+        notes.append(f"row-relative error {rel:.4g} (limit {row_rtol:.4g})")
     if envelope is not None:
         env = (got.float() - envelope[0]().float()).abs().max().item()
         if env > envelope[1]:
@@ -423,10 +489,16 @@ def _flash_case(torch, flush, report, key, label, dn, cuda_fn, plain_fn, lib_fns
                      f"(envelope {envelope[1]})")
     if bitwise is not None:
         wide, plain = bitwise[0](), bitwise[1]()
+        what = bitwise[2] if len(bitwise) > 2 else \
+            "W >= kv_len bit-identical to the unwindowed launch"
         torch.cuda.synchronize()
         if not torch.equal(wide, plain):
-            fail("kernels", f"{full}: W >= kv_len is not bit-identical to no window")
-        notes.append("W >= kv_len bit-identical to the unwindowed launch")
+            fail("kernels", f"{full}: not {what}")
+        notes.append(what)
+    if not lib_fns:
+        print(f"[kernels] {key:<32} {label:<40} {dn:<8} max_abs_err {err:.3g}; "
+              f"{'; '.join(notes)}")
+        return
     lib_ms = [time_ms(torch, f, flush) for f in lib_fns]
     if len(lib_ms) > 1:
         notes.append("library routes " + " / ".join(f"{t:.4f}" for t in lib_ms) + " ms")
@@ -635,6 +707,89 @@ def phase_kernel_forms(torch, flush) -> dict:
     return report
 
 
+def phase_kernel_edges(torch, flush) -> None:
+    """The flash kernel's tensor-core launches at their edges, bf16 q at
+    qwen's heads: Sq = 17 (the first launch it takes), the 36-row last
+    chunk of request 0's 1316 tokens, 129 rows and the whole 1316-token
+    prompt (neither a multiple of the 64-row block), Dh = 64, a paged chunk
+    at page 16 (a 64-key tile spans 4 pages), a windowed chunk with W >=
+    kv_len (bit-identical to the unwindowed launch), and int8 and e4m3
+    caches at 17 and 36 rows (inside ATTN_ENVELOPE of the fp32 oracle on
+    the unquantized cache).  Each within TOLS and EDGE_ROW_RTOL of its
+    plain version, its two launches torch.equal, every launch on the
+    tensor-core kernel as the library reports it.  Then the kernel, block
+    and occupancy of each instance as the library and the CUDA runtime
+    report them."""
+    import collections
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import occupancy
+    from repro_torch.kernels.flash_attention_ref import chunk_attention_ref
+
+    cfg = get_config(ARCH)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dn, bf16 = "bfloat16", torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    def edge(key, label, q, cuda_fn, plain_fn, **kw):
+        before = collections.Counter(_build.KERNEL_LAUNCHES)
+        _flash_case(torch, flush, {}, key, label, dn, cuda_fn, plain_fn, (), None, False,
+                    row_rtol=EDGE_ROW_RTOL, **kw)
+        took = collections.Counter(_build.KERNEL_LAUNCHES) - before
+        if not took or any(kernel != "tensor_core" for _, kernel in took):
+            fail("kernels", f"{key} {label}: launches by (op, kernel) {dict(took)}, not all "
+                            f"on the tensor-core kernel")
+
+    for dh in (cfg.head_dim, 64):
+        for s in (17, 129, 1316):
+            q, k, v = randn(1, s, h, dh), randn(1, s, kv, dh), randn(1, s, kv, dh)
+            edge("attention/edge", f"S={s} Dh={dh}", q,
+                 lambda: ops._cuda_attention(q, k, v, causal=True),
+                 lambda: ops._ref_attention(q, k, v, causal=True))
+        kc, vc = randn(1, MAX_LEN, kv, dh), randn(1, MAX_LEN, kv, dh)
+        for c, pos in ((17, 500), (36, 1280), (129, 700), (128, 1900)):
+            q = randn(1, c, h, dh)
+            edge("chunk_attention/edge", f"C={c} pos={pos} Dh={dh}", q,
+                 lambda: ops._cuda_chunk_attention(q, kc, vc, pos),
+                 lambda: chunk_attention_ref(q, kc, vc, pos),
+                 bitwise=(lambda: ops._cuda_chunk_attention(q, kc, vc, pos, None, 2 * MAX_LEN),
+                          lambda: ops._cuda_chunk_attention(q, kc, vc, pos)))
+        q, at = randn(1, 128, h, dh), 1900
+        pk, table = _paged_pool(torch, kc, 16, [at + 127], SEED + 16)
+        pv, _ = _paged_pool(torch, vc, 16, [at + 127], SEED + 16)
+        edge("chunk_attention/edge", f"C=128 pos={at} paged page=16 Dh={dh}", q,
+             lambda: ops._cuda_chunk_attention(q, pk, pv, at, table),
+             lambda: chunk_attention_ref(q, pk, pv, at, table),
+             bitwise=(lambda: ops._cuda_chunk_attention(q, pk, pv, at, table),
+                      lambda: ops._cuda_chunk_attention(q, kc, vc, at),
+                      "bit-identical to the contiguous launch"))
+        kf, vf = kc.float(), vc.float()
+        for fmt in ("int8", "fp8"):
+            (qk, ks), (qv, vs) = _quantize_rows(torch, kc, fmt), _quantize_rows(torch, vc, fmt)
+            for c, pos in ((17, 500), (36, 1280)):
+                q = randn(1, c, h, dh)
+                edge(f"chunk_attention/edge+kv_{fmt}", f"C={c} pos={pos} Dh={dh}", q,
+                     lambda: ops._cuda_chunk_attention(q, qk, qv, pos, None, None, ks, vs),
+                     lambda: chunk_attention_ref(q, qk, qv, pos, None, None, ks, vs),
+                     envelope=(lambda: chunk_attention_ref(q.float(), kf, vf, pos),
+                               ATTN_ENVELOPE[fmt]))
+        del kc, vc, kf, vf
+    for dtype, kv_dtype, sq in ((bf16, bf16, 128), (bf16, torch.int8, 128),
+                                (bf16, torch.float8_e4m3fn, 128), (bf16, bf16, 17),
+                                (bf16, bf16, 16), (bf16, bf16, 1),
+                                (torch.float32, torch.float32, 128)):
+        for dh in (cfg.head_dim, 64):
+            for paged in (False, True):
+                kind, rows, threads, resident = occupancy(dtype, kv_dtype, dh, sq, paged=paged)
+                print(f"[kernels] flash_attention occupancy q {dtype} cache {kv_dtype} Sq={sq} "
+                      f"Dh={dh}{' paged' if paged else ''}: {kind} kernel, {rows}-row blocks "
+                      f"of {threads} threads, {resident} resident an SM (CUDA runtime)")
+
+
 def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
@@ -781,7 +936,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
 
     eng.prefill_step, eng.decode_step = checked_prefill, checked_decode
     reqs = _requests(np, cfg)
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -792,6 +947,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)   # the run's launches, read just after it
+    kernel_launches = dict(_build.KERNEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     steps = (eng.prefill_calls, eng.decode_calls)
     # drop the checking wrappers: they close over the engine, and the cycle
@@ -841,9 +997,19 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
                 "quant_matmul": (steps[0] + steps[1]) * _qmm_per_step(n) if quantized else 0}
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
-    return {"server": server, "reqs": reqs, "launches": launches, "stats": stats,
-            "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak,
-            "median_ms": median_ms, "rows": (eng.chunk, eng.slots)}
+    run = {"server": server, "reqs": reqs, "launches": launches,
+           "kernel_launches": kernel_launches, "stats": stats,
+           "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak,
+           "median_ms": median_ms, "rows": (eng.chunk, eng.slots)}
+    if cfg.family != "ssm":
+        # every serve run here is bf16 with chunks of 128 rows: the library
+        # is to take the tensor-core kernel for each chunk, the FMA kernel
+        # for each decode tick
+        split = {op: _flash_by_kernel(run, op, want) for op, want in
+                 (("chunk_attention", "tensor_core"), ("decode_attention", "fma"))}
+        print(f"[serve] {label}: flash launches by kernel, as the library reported them: "
+              f"{split}")
+    return run
 
 
 def phase_serve(torch) -> dict:
@@ -869,10 +1035,11 @@ def phase_serve(torch) -> dict:
     # the whole-prompt entry point on the same deployment, counted on its
     # own: Model.prefill of request 0's prompt
     first = run["reqs"][0]
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
     torch.cuda.synchronize()
     whole_launches = dict(_build.LAUNCHES)
+    whole_kernels = dict(_build.KERNEL_LAUNCHES)
     # request 0's chunked prefill replayed into slot 0, to hold the whole
     # prefill against (its launches are not counted)
     for start in range(0, first.prompt_len, eng.chunk):
@@ -904,8 +1071,18 @@ def phase_serve(torch) -> dict:
     n = cfg.num_layers
     if whole_launches != {"attention": n, "rmsnorm": 2 * n + 1}:
         fail("serve", f"whole-prompt prefill launched {whole_launches}")
+    # the one serve-level number the flash kernel's prefill launches move
+    tokens = {"tokens": first.prompt[None]}
+    ms = {name: _median_ms(torch, lambda m=m: m.prefill(tokens))
+          for name, m in (("CUDA", eng.model), ("plain", m_plain))}
+    print(f"[serve] Model.prefill of request 0 ({first.prompt_len} tokens), host clock, "
+          f"synchronized, median of 3: CUDA binding {ms['CUDA']:.1f} ms, plain binding "
+          f"{ms['plain']:.1f} ms")
     runtime.cleanup()
-    return {"A": run, "attention": whole_launches["attention"]}
+    whole = {"launches": whole_launches, "kernel_launches": whole_kernels}
+    print(f"[serve] Model.prefill of request 0: attention launches by kernel, as the library "
+          f"reported them: {_flash_by_kernel(whole, 'attention', 'tensor_core')}")
+    return {"A": run, "whole": whole, "prefill_ms": ms}
 
 
 def phase_serve_modes(torch, contiguous: dict) -> dict:
@@ -955,15 +1132,17 @@ def phase_serve_modes(torch, contiguous: dict) -> dict:
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                for shape in ((1, MAX_LEN, h, dh), (1, MAX_LEN, kv, dh), (1, MAX_LEN, kv, dh)))
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     out = container.binding["windowed_attention"](q, k, v, WINDOW)
     torch.cuda.synchronize()
-    wlaunches = dict(_build.LAUNCHES)
-    print(f"[serve] binding['windowed_attention'] S={MAX_LEN} W={WINDOW}: launches {wlaunches}")
-    if wlaunches != {"windowed_attention": 1} or not torch.isfinite(out.float()).all():
-        fail("serve", f"windowed_attention through the binding launched {wlaunches}")
+    wrun = {"launches": dict(_build.LAUNCHES), "kernel_launches": dict(_build.KERNEL_LAUNCHES)}
+    print(f"[serve] binding['windowed_attention'] S={MAX_LEN} W={WINDOW}: launches "
+          f"{wrun['launches']}, by kernel "
+          f"{_flash_by_kernel(wrun, 'windowed_attention', 'tensor_core')}")
+    if wrun["launches"] != {"windowed_attention": 1} or not torch.isfinite(out.float()).all():
+        fail("serve", f"windowed_attention through the binding launched {wrun['launches']}")
     runtime.cleanup()
-    return {**runs, "windowed_attention": wlaunches["windowed_attention"]}
+    return {**runs, "windowed_attention": wrun}
 
 
 # --------------------------------------------------------------------------- #
@@ -1297,7 +1476,7 @@ def phase_serve_quant(torch, contiguous: dict) -> dict:
     q8 = _drive(torch, np, cfg, container, "Q8 int8, contiguous", params=tree)
     eng = q8.pop("server").engine
     first = q8["reqs"][0]
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
     torch.cuda.synchronize()
     whole_launches = dict(_build.LAUNCHES)
@@ -1568,7 +1747,7 @@ def phase_serve_moe(torch) -> dict:
     m = _drive(torch, np, cfg, container, "M contiguous")
     eng = m.pop("server").engine
     first = m["reqs"][0]
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
     torch.cuda.synchronize()
     whole_launches = dict(_build.LAUNCHES)
@@ -1801,7 +1980,7 @@ def phase_serve_ssm(torch) -> dict:
     run = _drive(torch, np, cfg, container, "S contiguous")
     eng = run.pop("server").engine
     first = run["reqs"][0]
-    _build.LAUNCHES.clear()
+    _build.clear_launches()
     whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
     torch.cuda.synchronize()
     whole_launches = dict(_build.LAUNCHES)
@@ -1858,6 +2037,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")   # > the 50 MB L2
     cases = phase_kernels(torch, flush)
     cases.update(phase_kernel_forms(torch, flush))
+    phase_kernel_edges(torch, flush)
     cases.update(phase_kernels_moe(torch, flush))
     cases.update(phase_kernels_quant(torch, flush))
     cases.update(phase_kernels_ssd(torch, flush))
@@ -1887,15 +2067,13 @@ def main() -> int:
 
     # (kernels-line entry, the run that drove it, the op it counts under)
     entries = [("rmsnorm", serve["A"], "rmsnorm"),
-               ("attention", {"launches": {"attention": serve["attention"]}}, "attention"),
+               ("attention", serve["whole"], "attention"),
                ("chunk_attention", serve["A"], "chunk_attention"),
                ("decode_attention", serve["A"], "decode_attention")]
     for form, run in (("paged", "B"), ("windowed", "E"), ("paged+windowed", "D")):
         for op in ("chunk_attention", "decode_attention"):
             entries.append((f"{op}/{form}", modes[run], op))
-    entries.append(("windowed_attention",
-                    {"launches": {"windowed_attention": modes["windowed_attention"]}},
-                    "windowed_attention"))
+    entries.append(("windowed_attention", modes["windowed_attention"], "windowed_attention"))
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
                 ("moe_gmm", moe["M"], "moe_gmm"),
@@ -1913,11 +2091,14 @@ def main() -> int:
     for key, run, op in entries:
         kernel = op if op in SOURCES else "flash_attention"
         source, replaces = SOURCES[kernel]
-        kernels.append({"name": key if kernel == op else f"{kernel}/{key}",
-                        "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": run["launches"][op], **cases[key],
-                        # the line is printed only when every phase passed
-                        "result": "pass"})
+        entry = {"name": key if kernel == op else f"{kernel}/{key}",
+                 "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": run["launches"][op], **cases[key],
+                 # the line is printed only when every phase passed
+                 "result": "pass"}
+        if kernel == "flash_attention":   # the op's launches by the kernel each took
+            entry["by_kernel"] = _flash_by_kernel(run, op)
+        kernels.append(entry)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "still_to_port": STILL_TO_PORT}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,11 @@ kernels are built for.
     python3 scripts/cuda_resources.py [CSRC_DIR ...]   # needs nvcc (CUDA toolkit)
 
 CSRC_DIR defaults to src/repro_torch/kernels/csrc.  A kernel that needs
-more than 65536 / (256 * blocks) registers a thread runs fewer blocks on
-an SM; spill bytes are local-memory traffic the kernel's loops pay.
+more than 65536 / (threads * blocks) registers a thread runs fewer blocks
+on an SM; spill bytes are local-memory traffic the kernel's loops pay.
+The blocks the CUDA runtime keeps resident on an SM, shared memory
+included, are printed by chip_smoke.py (quant_matmul's and the flash
+kernel's occupancy lines).
 """
 
 import shutil

@@ -12,7 +12,9 @@ seconds.  A build failure raises.
 
 `LAUNCHES` counts kernel launches by op name.  Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that a path
-went through the kernels.
+went through the kernels.  `KERNEL_LAUNCHES` counts them by (op, kernel)
+where the library reports which of its kernels it launched (the flash
+kernel's); `clear_launches` resets both.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 
 from repro_torch.kernels.quant import STORAGE_DTYPES
 
-__all__ = ["CODE_FORMATS", "LAUNCHES", "library", "check", "check_layout", "dtype_code",
-           "stream_of"]
+__all__ = ["CODE_FORMATS", "KERNEL_LAUNCHES", "LAUNCHES", "clear_launches", "library", "check",
+           "check_layout", "dtype_code", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "binding.cpp", CSRC / "rmsnorm.cu", CSRC / "flash_attention.cu",
@@ -37,6 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the 1-byte code formats of quantized weights and KV caches (common.cuh)
@@ -61,18 +64,26 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def clear_launches() -> None:
+    """Set every launch count, by op and by (op, kernel), to 0."""
+    LAUNCHES.clear()
+    KERNEL_LAUNCHES.clear()
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_rmsnorm.argtypes = [i, p, p, p, ctypes.c_longlong, i, f, p]
     lib.repro_rmsnorm.restype = i
+    ip = ctypes.POINTER(i)
     lib.repro_flash_attention.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p, p, p,
-                                          i, i, i, i, i, f, i, i, p]
+                                          i, i, i, i, i, f, i, i, p, ip]
     lib.repro_flash_attention.restype = i
+    lib.repro_flash_attention_occupancy.argtypes = [i, i, i, i, i, i, ip, ip, ip, ip]
+    lib.repro_flash_attention_occupancy.restype = i
     lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.repro_moe_gmm.restype = i
     lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
     lib.repro_quant_matmul.restype = i
-    ip = ctypes.POINTER(i)
     lib.repro_quant_matmul_occupancy.argtypes = [i, i, ctypes.c_longlong, ip, ip, ip]
     lib.repro_quant_matmul_occupancy.restype = i
     lib.repro_ssd_scan.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]

@@ -16,7 +16,12 @@ int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, con
                                  const int* block_tables, int nblocks, int page, int num_pages,
                                  const int* win_start, const float* k_scale,
                                  const float* v_scale, int b, int sq, int sk, int h, int kv,
-                                 float scale, int causal, int static_diag, void* stream);
+                                 float scale, int causal, int static_diag, void* stream,
+                                 int* kernel);
+
+int repro_flash_attention_occupancy_query(int dtype, int code, int dh, int sq, int paged,
+                                          int windowed, int* kernel, int* rows, int* threads,
+                                          int* resident);
 
 int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
                          void* out, long long t, int d, int f, int e, void* stream);
@@ -41,17 +46,31 @@ int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long ro
 
 // block_tables, win_start and the scales may be null (contiguous KV, no
 // window, a full-precision cache); `code` is read only with the scales.
+// *kernel gets the kernel launched (0 the FMA kernel, 1 the tensor-core
+// kernel; -1 none).
 int repro_flash_attention(int dtype, int code, int dh, const void* q, const void* k,
                           const void* v, void* o, const void* kv_len, const void* q_start,
                           const void* block_tables, int nblocks, int page, int num_pages,
                           const void* win_start, const void* k_scale, const void* v_scale,
                           int b, int sq, int sk, int h, int kv, float scale, int causal,
-                          int static_diag, void* stream) {
+                          int static_diag, void* stream, int* kernel) {
   return repro_flash_attention_launch(
       dtype, code, dh, q, k, v, o, static_cast<const int*>(kv_len),
       static_cast<const int*>(q_start), static_cast<const int*>(block_tables), nblocks, page,
       num_pages, static_cast<const int*>(win_start), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), b, sq, sk, h, kv, scale, causal, static_diag, stream);
+      static_cast<const float*>(v_scale), b, sq, sk, h, kv, scale, causal, static_diag, stream,
+      kernel);
+}
+
+// For a launch of Sq rows of q in `dtype` over a cache of format `code`
+// (-1: q's own dtype) on the current device: the kernel it takes (as
+// above), that kernel's query rows a block, its threads, and its blocks
+// resident on one SM.
+int repro_flash_attention_occupancy(int dtype, int code, int dh, int sq, int paged,
+                                    int windowed, int* kernel, int* rows, int* threads,
+                                    int* resident) {
+  return repro_flash_attention_occupancy_query(dtype, code, dh, sq, paged, windowed, kernel,
+                                               rows, threads, resident);
 }
 
 int repro_moe_gmm(int dtype, const void* x, const void* w, const void* group_sizes, void* out,

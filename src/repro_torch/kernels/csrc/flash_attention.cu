@@ -5,13 +5,13 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel) in its contiguous and paged
 // (block_tables), full and windowed (window), full-precision and
-// quantized-KV (k_scale / v_scale) forms.  On the
-// TPU the grid's minor kv axis runs in order on one core and carries
-// (m, l, acc) in VMEM scratch; on Hopper the blocks run in parallel in no
-// order, so one thread block owns one (batch, head, q-block) and walks the
-// key blocks itself, keeping m, l and acc in registers (fp32).
+// quantized-KV (k_scale / v_scale) forms.  On the TPU the grid's minor kv
+// axis runs in order on one core and carries (m, l, acc) in VMEM scratch;
+// on Hopper the blocks run in parallel in no order, so one thread block
+// owns one (batch, head, q-block) and walks the key tiles itself, keeping
+// m, l and acc in registers (fp32).
 //
-// Semantics reproduced from the Pallas kernel:
+// Semantics reproduced from the Pallas kernel, by both kernels below:
 //   * head hi reads KV head hi / group;
 //   * scores are masked to -1e30 where k_pos >= kv_len or, when causal,
 //     k_pos > q_pos + q_start (q_start per batch row), or, when windowed,
@@ -19,9 +19,9 @@
 //     ws = kv_len - Sq - W + 1 (the wrapper computes the row);
 //   * V rows at k_row >= kv_len are loaded as 0 before p.V (the
 //     out-of-bounds NaN fault the attention grid once caught);
-//   * key blocks with k_start >= kv_len are skipped, and, when q_start is
-//     static (whole-prompt prefill, q_start = Sk - Sq), blocks above the
-//     causal diagonal too; when windowed, blocks wholly below the q-block's
+//   * key tiles with k_start >= kv_len are skipped, and, when q_start is
+//     static (whole-prompt prefill, q_start = Sk - Sq), tiles above the
+//     causal diagonal too; when windowed, tiles wholly below the q-block's
 //     lowest window start (q0 + ws) are skipped, which turns a long-KV
 //     decode into O(W / 64) tiles;
 //   * the output is acc / max(l, 1e-30), stored in q's dtype.
@@ -30,48 +30,90 @@
 // lives at pool[table[b, p / page], p % page].  The Pallas kernel resolves
 // one page per grid step in its index map, so it clamps block_k to divide
 // the page; here the address is translated per key row as the tile is
-// loaded (a row-offset table in shared memory, built one tile ahead), so a
-// 64-key tile may span pages of any size.  Masking stays in logical
-// coordinates.  Unallocated entries point at the park page 0: they are
-// read and masked like any row past kv_len.  Rows below the q-block's
-// lowest window start are neither loaded nor multiplied (K and V stay 0),
-// so the straddling tile never touches a parked or recycled page's data.
-// With W >= kv_len that bound is <= 0: the windowed launch does exactly
-// the unwindowed launch's loads and arithmetic, and its output is
-// bit-identical.
+// copied (from a row table in shared memory, built ahead of the copies),
+// so a 64-key tile may span pages of any size.  Masking stays in logical coordinates.
+// Unallocated entries point at the park page 0: they are read and masked
+// like any row past kv_len.  Rows below the q-block's lowest window start
+// are neither loaded nor multiplied (K and V stay 0), so the straddling
+// tile never touches a parked or recycled page's data.  With W >= kv_len
+// that bound is <= 0: the windowed launch does exactly the unwindowed
+// launch's loads and arithmetic, and its output is bit-identical.
 //
-// Paging and the window are template flags, so each of the four forms is
-// its own instance and the contiguous, unwindowed one runs the plain
-// loop: no row-offset table, no window test.
+// Quantized KV: the K/V element type is a template parameter (KV = T is
+// the full-precision cache; int8 or e4m3 codes with one fp32 k_scale[b] /
+// v_scale[b] a batch row).  The cache streams from device memory at 1 byte
+// an element.
 //
-// Quantized KV: the K/V element type is a template parameter beside them
-// (KV = T is the full-precision cache).  With KV int8 or e4m3 the tile
-// loader reads 16 one-byte codes a thread, converts them to fp32 exactly
-// and multiplies them by the batch row's fp32 k_scale[b] / v_scale[b]
-// before staging, as the Pallas kernel upcasts its VMEM tile and
-// multiplies by the scale from its meta rows; everything after the stage
-// is the full-precision kernel's fp32 arithmetic.  The cache streams from
-// device memory at 1 byte an element: decode's byte bound halves against
-// bf16.
+// Two kernels, chosen by q's dtype and Sq (launch_rows, the one place the
+// rule lives); the entry point reports which one each launch took, and the
+// Python wrapper counts launches by it.  Each has an
+// instance per K/V type, head width (64, 128) and form: paging and the
+// window are template flags, so the contiguous, unwindowed instance runs
+// the plain loop (no page lookup, no window test).
 //
-// Layout of one block: BQ query rows of TPR threads each, 256 threads —
-// 64 rows of 4 for prefill and chunks, 16 rows of 16 for decode-sized
-// launches (Sq <= 16), so a decode block still has 256 threads to stream
-// the cache.  A thread holds 64 / TPR of its row's scores for the current
-// key tile and Dh / TPR of its row's output accumulators.  Q (pre-scaled),
-// K and V tiles are loaded in 16-byte vectors and staged in shared memory
-// as fp32; Q and K rows are padded by one float so the strided reads of
-// the score loop hit distinct banks.  Row max and row sum reduce over the
-// row's threads with shuffles, and p is broadcast from its owner by
-// shuffle for the p.V product.
-//
-// Bound on the H100: prefill and chunked prefill at Dh = 128 do ~2 * Dh
-// operations per key byte and are compute-bound once the products run on
-// the tensor cores; decode (one query per row) is bound by reading the
-// KV cache, B * min(W, kv_len) * KV * Dh * 2 * sizeof(KV) bytes.  This
-// version uses plain fp32 FMAs (no wgmma/TMA) and is far from either
-// bound; decode wastes the 15 spare rows of its 16-row query block, and
-// each of a GQA group's heads reads the group's K/V again.
+//   * flash_tc_kernel: bf16 q with Sq > 16 (whole-prompt prefill, every
+//     chunked-prefill step, windowed_attention).  These do ~2 Dh = 256
+//     operations a key byte at Dh = 128, times the rows of a q-block, far
+//     above the ~295 a byte of device memory at which the card's bf16
+//     tensor cores become the limit: they are bound by the tensor cores
+//     (989 TFLOP/s), and the products run there.  mma.sync.m16n8k16 on
+//     bf16 with fp32 accumulators, not wgmma: its S accumulator fragment
+//     is, element for element, the A fragment of P.V, so P stays in
+//     registers with no trip through shared memory, and it needs no
+//     descriptors.  Four warps of 16 query rows make a 64-row block of
+//     128 threads; Q is copied once as bf16 (not pre-scaled) and held in
+//     registers as A fragments; K fragments come by ldmatrix from the K
+//     tile, V fragments by ldmatrix.trans from the V tile.
+//     Why this is the Pallas kernel's function: it upcasts q, k and v to
+//     fp32 and contracts with fp32 sums.  A product of two bf16 values is
+//     exact in fp32, so S = q.k on the tensor cores differs only in the
+//     order of its fp32 sums, and the softmax scale (times k_scale[b])
+//     multiplies the fp32 S after the product.  Every int8 code and every
+//     finite e4m3 value is exact in bf16 and the scale is one fp32 scalar
+//     a batch row, so k_scale[b] folds into the score scale and v_scale[b]
+//     multiplies the finished acc / l.  The one rounding the Pallas kernel
+//     does not make is p to bf16 for P.V (2^-9 of each weight, the size of
+//     the bf16 output's own rounding); l sums the fp32 p.  The scale
+//     carries log2(e), so the exponentials are exp2.
+//     K and V tiles (64 keys) come through a ring of 3 stages filled by
+//     16-byte cp.async, zero-filled where a row is not to be loaded, so
+//     the next two tiles' copies are in flight while one is multiplied;
+//     one barrier a tile.  Rows are stored with their 16-byte chunks
+//     swizzled (chunk c of row r at c ^ (r % 8)): the 8 rows an ldmatrix
+//     reads hit 8 distinct bank groups.  A 1-byte cache is copied as 1
+//     byte, and each code tile is decoded once in shared memory into a
+//     bf16 tile with common.cuh's exact pair decoders (bit operations and
+//     one bf16x2 FMA a pair).  A paged launch's row table is built
+//     three tiles ahead by 64 threads, one table entry each, read at
+//     the top of an iteration and stored at its end, so the lookup's
+//     latency hides behind the products.  Tiles the whole block sees
+//     unmasked skip the mask test.  The q-blocks with the most tiles (the causal
+//     prefill's last rows) are started first.  No atomics and no split of
+//     the key loop: two launches give the same bits, the paged instance
+//     differs from the contiguous one only in the addresses it copies
+//     from, and W >= kv_len is the unwindowed launch bit for bit.
+//     Filling the card: a whole 2048-token prompt at H = 40 is 1280
+//     blocks, two resident an SM (112 KB of shared memory at Dh = 128);
+//     a 128-token chunk is 80 blocks for 132 SMs, one an SM.
+//   * flash_kernel: fp32 q (the tests, the fp32 model phase) and every
+//     launch with Sq <= 16 (decode, chunks of 16 or fewer).  BQ query rows
+//     of TPR threads each, 256 threads — 64 rows of 4 for fp32 prefill and
+//     chunks, 16 rows of 16 for decode-sized launches, so a decode block
+//     still has 256 threads to stream the cache.  A thread holds 64 / TPR
+//     of its row's scores for the current key tile and Dh / TPR of its
+//     row's output accumulators.  Q (pre-scaled), K and V tiles are
+//     loaded in 16-byte vectors and staged in shared memory as fp32 (a
+//     1-byte code converted exactly and multiplied by its row's scale, as
+//     the Pallas kernel upcasts its VMEM tile); Q and K rows are padded by
+//     one float so the strided reads of the score loop hit distinct banks.
+//     Row max and row sum reduce over the row's threads with shuffles, and
+//     p is broadcast from its owner by shuffle for the p.V product.  fp32
+//     q stays on fp32 FMAs: TF32 keeps ~10 bits of q, outside fp32's
+//     tolerance, and no bf16 serve run takes it.  Decode (one query a row)
+//     is bound by reading the KV cache, B * min(W, kv_len) * KV * Dh * 2 *
+//     sizeof(KV) bytes; this kernel is far from that bound: it wastes the
+//     15 spare rows of its 16-row query block, and each of a GQA group's
+//     heads reads the group's K/V again.
 #include <type_traits>
 
 #include "common.cuh"
@@ -288,41 +330,445 @@ __global__ void __launch_bounds__(BQ * TPR, 2) flash_kernel(const Params p) {
   }
 }
 
-template <typename T, typename KV, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
-int launch(const Params& p, int b, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH, BQ>();
-  auto kernel = &flash_kernel<T, KV, DH, BQ, TPR, PAGED, WINDOWED>;
+// --------------------------------------------------------------------------
+// The tensor-core kernel: bf16 q, Sq > 16
+// --------------------------------------------------------------------------
+constexpr int kTcRows = 64;      // query rows a block: 4 warps of 16
+constexpr int kTcThreads = 128;
+constexpr int kTcStages = 3;     // the K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::smem_addr;
+
+// Byte offset of 16-byte chunk c of row r in a tile of `cpr` chunks a row
+// (a multiple of 8), chunk c stored at c ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c, int cpr) {
+  return static_cast<uint32_t>((r * cpr + (c ^ (r & 7))) << 4);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
+// row addresses of matrix i, and r[i] holds this lane's pair of it (row
+// lane / 4, columns 2 (lane % 4) + 0, 1), or with .trans of its transpose.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major fragment) * b (16 x 8,
+// bf16, column fragment b0 b1).  Lane l holds d rows l / 4 (d[0], d[1])
+// and l / 4 + 8 (d[2], d[3]), columns 2 (l % 4) + 0, 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats to a bf16 pair (lo in the low half), rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two codes (the low bytes of t's 16-bit halves) to a bf16 pair, exactly.
+template <typename KV>
+__device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t t);
+
+template <>
+__device__ __forceinline__ uint32_t codes_to_bf16x2<int8_t>(uint32_t t) {
+  return repro::int8x2_to_bf16x2(t);
+}
+
+template <>
+__device__ __forceinline__ uint32_t codes_to_bf16x2<__nv_fp8_e4m3>(uint32_t t) {
+  return repro::e4m3x2_to_bf16x2(t);
+}
+
+// Decodes a staged tile of 1-byte codes (kBK rows of DH codes, row-major)
+// into the bf16 tile the products read (rows of DH / 8 swizzled chunks).
+// A warp reads 512 consecutive bytes.
+template <typename KV, int DH>
+__device__ __forceinline__ void decode_tile(const uint8_t* codes, uint8_t* out) {
+  constexpr int CPR = DH / 16;  // 16-code chunks a row
+  static_assert(kBK * CPR % kTcThreads == 0, "whole passes");
+#pragma unroll
+  for (int j = 0; j < kBK * CPR / kTcThreads; ++j) {
+    const int idx = threadIdx.x + j * kTcThreads;
+    const int r = idx / CPR, c = idx % CPR;
+    const uint4 u = *reinterpret_cast<const uint4*>(codes + idx * 16);
+    uint4 lo, hi;  // codes 0..7 and 8..15 of the chunk
+    lo.x = codes_to_bf16x2<KV>(__byte_perm(u.x, 0, 0x4140));
+    lo.y = codes_to_bf16x2<KV>(__byte_perm(u.x, 0, 0x4342));
+    lo.z = codes_to_bf16x2<KV>(__byte_perm(u.y, 0, 0x4140));
+    lo.w = codes_to_bf16x2<KV>(__byte_perm(u.y, 0, 0x4342));
+    hi.x = codes_to_bf16x2<KV>(__byte_perm(u.z, 0, 0x4140));
+    hi.y = codes_to_bf16x2<KV>(__byte_perm(u.z, 0, 0x4342));
+    hi.z = codes_to_bf16x2<KV>(__byte_perm(u.w, 0, 0x4140));
+    hi.w = codes_to_bf16x2<KV>(__byte_perm(u.w, 0, 0x4342));
+    *reinterpret_cast<uint4*>(out + swz(r, 2 * c, DH / 8)) = lo;
+    *reinterpret_cast<uint4*>(out + swz(r, 2 * c + 1, DH / 8)) = hi;
+  }
+}
+
+template <typename KV, int DH>
+constexpr size_t tc_smem_bytes() {
+  // Q, the ring of K and V tiles, and for a 1-byte cache the decoded tiles
+  return static_cast<size_t>(kTcRows * DH * 2 + kTcStages * 2 * kBK * DH * sizeof(KV) +
+                             (sizeof(KV) == 1 ? 2 * kBK * DH * 2 : 0));
+}
+
+// bf16 q; KV: bf16 or a 1-byte code; PAGED / WINDOWED as flash_kernel's.
+// Grid (H, q-blocks, B); 128 threads, two blocks an SM.
+template <typename KV, int DH, bool PAGED, bool WINDOWED>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_tc_kernel(const Params p) {
+  using T = __nv_bfloat16;
+  constexpr bool QUANT = !std::is_same<T, KV>::value;
+  constexpr int ES = static_cast<int>(sizeof(KV));
+  constexpr int CPR = DH * ES / 16;        // 16-byte chunks a ring row
+  constexpr int RPP = kTcThreads / CPR;    // ring rows a pass of the block's copies
+  constexpr int PASSES = kBK / RPP;        // passes a tile
+  constexpr int BCPR = DH / 8;             // 16-byte chunks a bf16 row
+  constexpr int KV_TILE = kBK * DH * ES;   // bytes of a ring tile (K or V)
+  constexpr int BF_TILE = kBK * DH * 2;    // bytes of a bf16 tile
+  constexpr int NK = kBK / 8;              // score fragments (8 keys each) a row group
+  constexpr int ND = DH / 8;               // output fragments (8 columns each)
+  static_assert(BCPR % 8 == 0 && kTcThreads % CPR == 0 && kBK % RPP == 0, "tile maps");
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const uint32_t q_s = smem_addr(tc_smem);
+  const uint32_t ring = q_s + kTcRows * DH * 2;
+  const uint32_t bf = ring + kTcStages * 2 * KV_TILE;  // decoded K, then V (1-byte cache)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hi = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // the longest q-blocks first
+  const int bi = blockIdx.z;
+  const int sq = p.sq, sk = p.sk;
+  const int kvh = hi / p.group;
+  const int kvl = p.kv_len[bi];
+  const int klim = min(kvl, sk);
+  const int qs = p.q_start[bi];
+  const int ws = WINDOWED ? p.win_start[bi] : 0;
+  const int klo = WINDOWED ? q0 + ws : 0;  // below it keys are dead for every row
+  const int* tbl = PAGED ? p.block_tables + static_cast<long long>(bi) * p.nblocks : nullptr;
+  float sc = p.scale * kLog2e, vsc = 1.f;
+  if constexpr (QUANT) {
+    sc = p.scale * p.k_scale[bi] * kLog2e;
+    vsc = p.v_scale[bi];
+  }
+
+  int kend = klim;
+  if (p.causal && p.static_diag) kend = min(kend, q0 + (sk - sq) + kTcRows);
+  const int kb0 = klo > 0 ? klo / kBK : 0;  // first tile holding a live key
+  const int nt = max((kend > 0 ? (kend + kBK - 1) / kBK : 0) - kb0, 0);
+
+  // Paged: the pool token row (page * page size + offset) of each key row
+  // of a tile, -1 where the row is not to be loaded (paged_row's test), in
+  // the slot of the tile's ring stage.  Key row tid of the tile three
+  // ahead is looked up by thread tid < kBK: its table entry is read at the
+  // top of an iteration and its row stored at the end, after the products.
+  __shared__ int tok_row[PAGED ? kTcStages : 1][PAGED ? kBK : 1];
+  auto tok_of = [&](int krow, int pg) {
+    return pg >= 0 && pg < p.num_pages ? pg * p.page + krow % p.page : -1;
+  };
+  auto page_of = [&](int krow) { return krow < sk && krow >= klo ? tbl[krow / p.page] : -1; };
+
+  // The block's copies: thread tid takes chunk tid % CPR of ring rows
+  // tid / CPR + RPP j.
+  const KV* __restrict__ kg = static_cast<const KV*>(p.k);
+  const KV* __restrict__ vg = static_cast<const KV*>(p.v);
+  const int crow = tid / CPR, cchunk = tid % CPR;
+  auto copy_tile = [&](int kb, int stage) {
+    const uint32_t kdst = ring + stage * 2 * KV_TILE, vdst = kdst + KV_TILE;
+#pragma unroll
+    for (int j = 0; j < PASSES; ++j) {
+      const int jj = crow + RPP * j;
+      const int krow = kb * kBK + jj;
+      long long ro;
+      bool live;
+      if constexpr (PAGED) {
+        const int tok = tok_row[stage][jj];
+        live = tok >= 0;
+        ro = static_cast<long long>(tok) * p.kv;
+      } else {
+        live = krow < sk && (!WINDOWED || krow >= klo);
+        ro = (static_cast<long long>(bi) * sk + krow) * p.kv;
+      }
+      const long long off = live ? (ro + kvh) * DH + cchunk * (16 / ES) : 0;
+      const uint32_t dst = QUANT ? static_cast<uint32_t>((jj * CPR + cchunk) * 16)
+                                 : swz(jj, cchunk, CPR);
+      cp_async16(kdst + dst, kg + off, live);
+      cp_async16(vdst + dst, vg + off, live && krow < kvl);  // rows past kv_len stay 0
+    }
+  };
+
+  // group 0: Q and tile 0; group s: tile s
+  const T* __restrict__ qg = static_cast<const T*>(p.q);
+#pragma unroll
+  for (int j = 0; j < kTcRows * BCPR / kTcThreads; ++j) {
+    const int r = tid / BCPR + j * (kTcThreads / BCPR), c = tid % BCPR;
+    const bool ok = q0 + r < sq;
+    const long long row = static_cast<long long>(bi) * sq + (ok ? q0 + r : 0);
+    cp_async16(q_s + swz(r, c, BCPR), qg + (row * p.h + hi) * DH + c * 8, ok);
+  }
+  if constexpr (PAGED) {
+    if (tid < kBK) {
+#pragma unroll
+      for (int s = 0; s < kTcStages; ++s) {
+        const int krow = (kb0 + s) * kBK + tid;
+        tok_row[s][tid] = tok_of(krow, page_of(krow));
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nt) copy_tile(kb0 + s, s);
+    cp_async_commit();
+  }
+
+  uint32_t qf[DH / 16][4];
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+  const int qrow0 = q0 + warp * 16 + g;
+  int stage = 0;  // tile i's ring stage
+
+  for (int i = 0; i < nt; ++i) {
+    const int k0 = (kb0 + i) * kBK;
+    cp_async_wait<kTcStages - 2>();  // tile i landed (and Q with tile 0)
+    __syncthreads();                 // ... for every thread; tile i - 1 consumed
+    const int next = i + kTcStages - 1;  // into the stage tile i - 1 used
+    if (next < nt) copy_tile(kb0 + next, stage == 0 ? kTcStages - 1 : stage - 1);
+    cp_async_commit();
+    int ahead_row = 0, ahead_page = -1;  // paged: key row tid of tile i + 3
+    if constexpr (PAGED) {
+      if (tid < kBK) {
+        ahead_row = k0 + kTcStages * kBK + tid;
+        ahead_page = page_of(ahead_row);
+      }
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldsm_x4(qf[kk], q_s + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4), BCPR));
+    }
+    uint32_t ks = ring + stage * 2 * KV_TILE, vs = ks + KV_TILE;
+    if constexpr (QUANT) {
+      decode_tile<KV, DH>(tc_smem + (ks - q_s), tc_smem + (bf - q_s));
+      decode_tile<KV, DH>(tc_smem + (vs - q_s), tc_smem + (bf + BF_TILE - q_s));
+      __syncthreads();
+      ks = bf;
+      vs = bf + BF_TILE;
+    }
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < NK / 2; ++n2) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + swz(n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
+                            2 * kk + ((lane >> 3) & 1), BCPR));
+        mma_bf16(s[2 * n2], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale (log2 units) and mask; a tile every row of the block sees whole
+    // (below kv_len, the diagonal and above every window start) is not tested
+    const bool whole = k0 + kBK <= klim && (!p.causal || k0 + kBK - 1 <= q0 + qs) &&
+                       (!WINDOWED || k0 >= q0 + kTcRows - 1 + ws);
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sc;
+        if (!whole) {
+          const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+          const int qpos = qrow0 + (e >> 1) * 8;
+          bool ok = kpos < klim;
+          if (p.causal) ok = ok && kpos <= qpos + qs;
+          if constexpr (WINDOWED) ok = ok && kpos >= qpos + ws;
+          x = ok ? x : kNegInf;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax over the tile; a row's 4 lanes reduce by shuffles
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];  // this lane's part of the row sum, reduced at the end
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+
+    // O += P V, P (bf16) from the score fragments of keys 16 kv .. 16 kv + 15
+#pragma unroll
+    for (int kv = 0; kv < kBK / 16; ++kv) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kv][0], s[2 * kv][1]),
+                             pack_bf16(s[2 * kv][2], s[2 * kv][3]),
+                             pack_bf16(s[2 * kv + 1][0], s[2 * kv + 1][1]),
+                             pack_bf16(s[2 * kv + 1][2], s[2 * kv + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < ND / 2; ++d2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vs + swz(kv * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  2 * d2 + (lane >> 4), BCPR));
+        mma_bf16(o[2 * d2], a, b[0], b[1]);
+        mma_bf16(o[2 * d2 + 1], a, b[2], b[3]);
+      }
+    }
+    if constexpr (PAGED) {
+      // into tile i's slot: tile i + 3 takes its ring stage
+      if (tid < kBK) tok_row[stage][tid] = tok_of(ahead_row, ahead_page);
+    }
+    stage = stage == kTcStages - 1 ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();  // no copy in flight at exit
+
+  T* __restrict__ og = static_cast<T*>(p.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qrow = qrow0 + 8 * r;
+    if (qrow < sq) {
+      const float den = fmaxf(l[r], 1e-30f);
+      T* orow = og + ((static_cast<long long>(bi) * sq + qrow) * p.h + hi) * DH + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        float x0 = o[d][2 * r] / den, x1 = o[d][2 * r + 1] / den;
+        if constexpr (QUANT) {
+          x0 *= vsc;
+          x1 *= vsc;
+        }
+        *reinterpret_cast<uint32_t*>(orow + 8 * d) = pack_bf16(x0, x1);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// Launches
+// --------------------------------------------------------------------------
+
+// The kernels a launch may take, as repro_flash_attention reports them.
+enum KernelId { kFmaKernel = 0, kTensorCoreKernel = 1 };
+
+// What a launch took: its kernel, query rows a block and threads.  With
+// `query` set nothing is launched, and `resident` gets the blocks of that
+// instance the CUDA runtime keeps on one SM (repro_flash_attention_occupancy).
+struct Launch {
+  bool query;
+  int kernel, rows, threads, resident;
+};
+
+template <typename Kernel>
+int start(Kernel kernel, KernelId id, dim3 grid, int threads, size_t smem, int rows,
+          const Params& p, cudaStream_t stream, Launch& at) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, b);
-  kernel<<<grid, BQ * TPR, smem, stream>>>(p);
+  at.kernel = id;
+  at.rows = rows;
+  at.threads = threads;
+  if (at.query)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&at.resident, kernel, threads, smem));
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename KV, int DH, int BQ, int TPR>
-int launch_form(const Params& p, int b, cudaStream_t stream) {
+template <typename T, typename KV, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
+int launch(const Params& p, int b, cudaStream_t stream, Launch& at) {
+  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, b);
+  return start(&flash_kernel<T, KV, DH, BQ, TPR, PAGED, WINDOWED>, kFmaKernel, grid, BQ * TPR,
+               smem_bytes<DH, BQ>(), BQ, p, stream, at);
+}
+
+template <typename KV, int DH, bool PAGED, bool WINDOWED>
+int launch_tc(const Params& p, int b, cudaStream_t stream, Launch& at) {
+  const dim3 grid(p.h, (p.sq + kTcRows - 1) / kTcRows, b);
+  return start(&flash_tc_kernel<KV, DH, PAGED, WINDOWED>, kTensorCoreKernel, grid,
+               kTcThreads, tc_smem_bytes<KV, DH>(), kTcRows, p, stream, at);
+}
+
+// TC: the tensor-core kernel, else flash_kernel with BQ rows of TPR threads.
+template <bool TC, typename T, typename KV, int DH, int BQ, int TPR, bool PAGED, bool WINDOWED>
+int launch_kernel(const Params& p, int b, cudaStream_t stream, Launch& at) {
+  if constexpr (TC) return launch_tc<KV, DH, PAGED, WINDOWED>(p, b, stream, at);
+  else return launch<T, KV, DH, BQ, TPR, PAGED, WINDOWED>(p, b, stream, at);
+}
+
+template <bool TC, typename T, typename KV, int DH, int BQ, int TPR>
+int launch_form(const Params& p, int b, cudaStream_t stream, Launch& at) {
   const bool paged = p.block_tables != nullptr, windowed = p.win_start != nullptr;
-  if (paged && windowed) return launch<T, KV, DH, BQ, TPR, true, true>(p, b, stream);
-  if (paged) return launch<T, KV, DH, BQ, TPR, true, false>(p, b, stream);
-  if (windowed) return launch<T, KV, DH, BQ, TPR, false, true>(p, b, stream);
-  return launch<T, KV, DH, BQ, TPR, false, false>(p, b, stream);
+  if (paged && windowed) return launch_kernel<TC, T, KV, DH, BQ, TPR, true, true>(p, b, stream, at);
+  if (paged) return launch_kernel<TC, T, KV, DH, BQ, TPR, true, false>(p, b, stream, at);
+  if (windowed) return launch_kernel<TC, T, KV, DH, BQ, TPR, false, true>(p, b, stream, at);
+  return launch_kernel<TC, T, KV, DH, BQ, TPR, false, false>(p, b, stream, at);
 }
 
 template <typename T, typename KV, int DH>
-int launch_rows(const Params& p, int b, cudaStream_t stream) {
-  // decode-sized launches: 16 rows of 16 threads; otherwise 64 rows of 4
-  if (p.sq <= 16) return launch_form<T, KV, DH, 16, 16>(p, b, stream);
-  return launch_form<T, KV, DH, 64, 4>(p, b, stream);
+int launch_rows(const Params& p, int b, cudaStream_t stream, Launch& at) {
+  // decode-sized launches: 16 rows of 16 threads; bf16 q with more rows:
+  // the tensor cores; fp32 q with more rows: 64 rows of 4
+  if (p.sq <= 16) return launch_form<false, T, KV, DH, 16, 16>(p, b, stream, at);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_form<true, T, KV, DH, 0, 0>(p, b, stream, at);
+  else return launch_form<false, T, KV, DH, 64, 4>(p, b, stream, at);
 }
 
 template <typename T, typename KV>
-int launch_dh(int dh, const Params& p, int b, cudaStream_t stream) {
+int launch_dh(int dh, const Params& p, int b, cudaStream_t stream, Launch& at) {
   switch (dh) {
     case 64:
-      return launch_rows<T, KV, 64>(p, b, stream);
+      return launch_rows<T, KV, 64>(p, b, stream, at);
     case 128:
-      return launch_rows<T, KV, 128>(p, b, stream);
+      return launch_rows<T, KV, 128>(p, b, stream, at);
     default:
       return -1;
   }
@@ -330,13 +776,25 @@ int launch_dh(int dh, const Params& p, int b, cudaStream_t stream) {
 
 // The cache's element type: q's own without scales, else the code format.
 template <typename T>
-int launch_kv(int code, int dh, const Params& p, int b, cudaStream_t stream) {
-  if (p.k_scale == nullptr) return launch_dh<T, T>(dh, p, b, stream);
+int launch_kv(int code, int dh, const Params& p, int b, cudaStream_t stream, Launch& at) {
+  if (p.k_scale == nullptr) return launch_dh<T, T>(dh, p, b, stream, at);
   switch (code) {
     case repro::kCodeInt8:
-      return launch_dh<T, int8_t>(dh, p, b, stream);
+      return launch_dh<T, int8_t>(dh, p, b, stream, at);
     case repro::kCodeE4M3:
-      return launch_dh<T, __nv_fp8_e4m3>(dh, p, b, stream);
+      return launch_dh<T, __nv_fp8_e4m3>(dh, p, b, stream, at);
+    default:
+      return -1;
+  }
+}
+
+int launch_dtype(int dtype, int code, int dh, const Params& p, int b, cudaStream_t stream,
+                 Launch& at) {
+  switch (dtype) {
+    case repro::kFloat32:
+      return launch_kv<float>(code, dh, p, b, stream, at);
+    case repro::kBFloat16:
+      return launch_kv<__nv_bfloat16>(code, dh, p, b, stream, at);
     default:
       return -1;
   }
@@ -353,25 +811,47 @@ int launch_kv(int code, int dh, const Params& p, int b, cudaStream_t stream) {
 // q_start and (when not null) win_start are (B,) int32 on the device; q,
 // k, v and o are 16-byte aligned.  Launches on `stream`; returns the
 // cudaError_t of the launch (0 = ok) or -1 for an unsupported dtype, code
-// format or head_dim.
+// format or head_dim.  *kernel gets the kernel launched (0 flash_kernel,
+// 1 flash_tc_kernel), or -1 when nothing was launched.
 int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
                                  const int* block_tables, int nblocks, int page, int num_pages,
                                  const int* win_start, const float* k_scale,
                                  const float* v_scale, int b, int sq, int sk, int h, int kv,
-                                 float scale, int causal, int static_diag, void* stream) {
+                                 float scale, int causal, int static_diag, void* stream,
+                                 int* kernel) {
+  *kernel = -1;
   if (b == 0 || sq == 0 || h == 0) return 0;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return -1;
   const Params p{q,       k,       v,  o,  kv_len, q_start, block_tables, win_start,
                  k_scale, v_scale, sq, sk, h,      kv,      h / kv,       page,
                  num_pages, nblocks, scale, causal, static_diag};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case repro::kFloat32:
-      return launch_kv<float>(code, dh, p, b, s);
-    case repro::kBFloat16:
-      return launch_kv<__nv_bfloat16>(code, dh, p, b, s);
-    default:
-      return -1;
-  }
+  Launch at{false, -1, 0, 0, 0};
+  const int err = launch_dtype(dtype, code, dh, p, b, static_cast<cudaStream_t>(stream), at);
+  if (err == 0) *kernel = at.kernel;
+  return err;
+}
+
+// For a launch of Sq query rows of q in `dtype` over a cache of format
+// `code` (-1: q's own dtype), head width dh, paged and windowed or not, on
+// the current device: the kernel it takes (as *kernel above), that
+// kernel's query rows a block, its threads, and its blocks resident on one
+// SM as the CUDA runtime reports them.  Launches nothing.
+int repro_flash_attention_occupancy_query(int dtype, int code, int dh, int sq, int paged,
+                                          int windowed, int* kernel, int* rows, int* threads,
+                                          int* resident) {
+  static const int kAny = 0;          // stands for a device pointer: only its presence
+  static const float kAnyScale = 0.f;  // selects the instance
+  Params p{};
+  p.sq = sq;
+  p.block_tables = paged ? &kAny : nullptr;
+  p.win_start = windowed ? &kAny : nullptr;
+  p.k_scale = p.v_scale = code >= 0 ? &kAnyScale : nullptr;
+  Launch at{true, -1, 0, 0, 0};
+  const int err = launch_dtype(dtype, code, dh, p, 1, nullptr, at);
+  *kernel = at.kernel;
+  *rows = at.rows;
+  *threads = at.threads;
+  *resident = at.resident;
+  return err;
 }

@@ -403,25 +403,10 @@ constexpr int kTcSmem = kTcStages * (kXTile + kQTile) + kTcB * kBTile + 1024;
 static_assert(kThreads == 256 && kBK == 64 && kBN == 128, "the tile maps below");
 static_assert(kTcStages >= 4 && kTcB == 3, "tc_mainloop's waits");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory to shared memory, or 16 zero bytes.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::smem_addr;
 
 // Makes this thread's shared-memory writes visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() {

@@ -24,6 +24,13 @@ codes, and the kernel multiplies each loaded row by its batch row's
 float32 scale before the fp32 math; the wrapper broadcasts the () or
 (B,) scales to (B,) rows on q's device.
 
+The library picks one of two kernels by q's dtype and Sq: bf16 q with
+more than 16 rows (whole prompts, prefill chunks) runs on the bf16 tensor
+cores with fp32 sums, p rounded to bf16 for p.V; fp32 q, and every launch
+of 16 rows or fewer (decode), on fp32 FMAs.  It reports the kernel each
+launch took, and the wrapper counts it by (op, kernel) in
+`_build.KERNEL_LAUNCHES` (names in `KERNELS`).
+
 The arguments are checked as the kernel needs them on either device
 (dtype, shapes, one device, layout); then a CUDA tensor launches the
 kernel (or raises) and a CPU tensor takes the plain version,
@@ -33,14 +40,34 @@ serves in the launch count (`_build.LAUNCHES`).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention_ref import check_scales, masked_attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "occupancy", "HEAD_DIMS", "KERNELS"]
 
 HEAD_DIMS = (64, 128)   # head widths the kernel is instantiated for
+KERNELS = ("fma", "tensor_core")   # the library's kernel numbers, by name
+
+
+def occupancy(dtype: torch.dtype, kv_dtype: torch.dtype, dh: int, sq: int, *,
+              paged: bool = False, windowed: bool = False) -> tuple[str, int, int, int]:
+    """(kernel, query rows a block, threads, blocks resident on an SM) of
+    the kernel instance a launch would take on the current card, as the
+    library and the CUDA runtime report them; kv_dtype: the cache's (q's
+    own, or a 1-byte code format)."""
+    lib = _build.library()
+    vals = [ctypes.c_int() for _ in range(4)]
+    code = _build.CODE_FORMATS.get(kv_dtype, -1)
+    err = lib.repro_flash_attention_occupancy(
+        _build.dtype_code(torch.empty((), dtype=dtype), "flash_attention"), code, dh, sq,
+        int(paged), int(windowed), *(ctypes.byref(v) for v in vals))
+    _build.check(lib, err, "flash_attention occupancy")
+    kernel, rows, threads, resident = (v.value for v in vals)
+    return KERNELS[kernel], rows, threads, resident
 
 
 def _rows(x, default: int, b: int, device) -> torch.Tensor:
@@ -151,6 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(built for {HEAD_DIMS})")
     lib = _build.library()
     out = torch.empty_like(q)
+    took = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
             code, _build.CODE_FORMATS.get(k.dtype, 0), dh, q.data_ptr(), k.data_ptr(),
@@ -159,7 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[0] if paged else 0,
             None if win_start is None else win_start.data_ptr(),
             k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-            b, sq, sk, h, kv, float(scale), int(causal), int(static_diag), _build.stream_of(q))
+            b, sq, sk, h, kv, float(scale), int(causal), int(static_diag), _build.stream_of(q),
+            ctypes.byref(took))
     _build.check(lib, err, "flash_attention")
     _build.LAUNCHES[op] += 1
+    if took.value >= 0:
+        _build.KERNEL_LAUNCHES[op, KERNELS[took.value]] += 1
     return out
