@@ -31,6 +31,12 @@ Phases, each one printed line per case, each raising on failure:
                bit-identical to the contiguous one, W >= kv_len, int8 and
                e4m3 caches; each also within EDGE_ROW_RTOL row by row, and
                on the tensor-core kernel as the library reports it) and
+               then the split decode kernel's edges (bf16 q, one row a
+               slot: pos 0, 63, 64, 127, 128 and 2047, B = 1 and 4 with a
+               parked slot, a window starting inside a split, Dh = 64,
+               page 16 and int8 / e4m3 caches each bit-identical to the
+               contiguous launch, MHA-16; each within EDGE_ROW_RTOL, on the
+               split decode kernel as the library reports it) and
                each flash instance's kernel, block and occupancy as the
                library and the CUDA runtime report them.
   4. model   — full width, 2 layers, fp32: logits of the CUDA binding
@@ -47,8 +53,8 @@ Phases, each one printed line per case, each raising on failure:
                exactly the kernels its steps need; each attention run
                prints its flash launches by kernel as the library reported
                them at each launch, and fails unless its bf16 chunks of 128
-               took the tensor-core kernel and its decode ticks the FMA
-               kernel.  B's
+               took the tensor-core kernel and its decode ticks the split
+               decode kernel.  B's
                tokens must equal A's and D's E's.  The whole prefill
                through the plain binding is printed beside it for scale,
                both timed (host clock, synchronized, median of 3), and
@@ -193,12 +199,13 @@ TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_attention_conforman
 POISON = 50.0       # park-page fill, as tests/test_attention_conformance.py
 MAX_LEN = 2048      # the serve phase's slot length: 16 pages of 128
 WINDOW = 512        # the windowed serve runs' and kernel cases' W
-# the tensor-core kernel's edge cases, beside TOLS: over every (batch,
+# the flash kernel's bf16 edge cases, beside TOLS: over every (batch,
 # query, head) row, max |cuda - plain| / max |plain| over its Dh outputs,
 # at most 4 bf16 ulps of the row's largest output.  TOLS's 2e-2 is half a
-# typical output at 2000 keys; a 64-key tile dropped or counted twice
-# moves some row by far more than this limit (tests/test_torch_flash_tc.py
-# plants both faults in the kernel's emulation)
+# typical output at 2000 keys; a 64-key tile, or a 128-key decode split,
+# dropped or counted twice moves some row by far more than this limit
+# (tests/test_torch_flash_tc.py and tests/test_torch_flash_decode.py plant
+# both faults in the kernels' emulations)
 EDGE_ROW_RTOL = 4 * 2.0 ** -7
 MODEL_RTOL = 1e-3   # phase 4: max |cuda - plain| / max |plain| over the logits
 SSM_MODEL_RTOL = 1e-4   # the SSM model phase's limit, the same measure
@@ -708,18 +715,18 @@ def phase_kernel_forms(torch, flush) -> dict:
 
 
 def phase_kernel_edges(torch, flush) -> None:
-    """The flash kernel's tensor-core launches at their edges, bf16 q at
-    qwen's heads: Sq = 17 (the first launch it takes), the 36-row last
-    chunk of request 0's 1316 tokens, 129 rows and the whole 1316-token
+    """The flash kernel's bf16 launches at their edges, at qwen's heads.
+    The tensor-core kernel: Sq = 17 (the first launch it takes), the 36-row
+    last chunk of request 0's 1316 tokens, 129 rows and the whole 1316-token
     prompt (neither a multiple of the 64-row block), Dh = 64, a paged chunk
     at page 16 (a 64-key tile spans 4 pages), a windowed chunk with W >=
     kv_len (bit-identical to the unwindowed launch), and int8 and e4m3
     caches at 17 and 36 rows (inside ATTN_ENVELOPE of the fp32 oracle on
-    the unquantized cache).  Each within TOLS and EDGE_ROW_RTOL of its
-    plain version, its two launches torch.equal, every launch on the
-    tensor-core kernel as the library reports it.  Then the kernel, block
-    and occupancy of each instance as the library and the CUDA runtime
-    report them."""
+    the unquantized cache).  The split decode kernel (`_decode_edges`).
+    Each within TOLS and EDGE_ROW_RTOL of its plain version, its two
+    launches torch.equal, every launch on its kernel as the library reports
+    it.  Then the kernel, block and occupancy of each instance as the
+    library and the CUDA runtime report them."""
     import collections
 
     from repro_torch.configs import get_config
@@ -735,14 +742,14 @@ def phase_kernel_edges(torch, flush) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    def edge(key, label, q, cuda_fn, plain_fn, **kw):
+    def edge(key, label, q, cuda_fn, plain_fn, kernel="tensor_core", **kw):
         before = collections.Counter(_build.KERNEL_LAUNCHES)
         _flash_case(torch, flush, {}, key, label, dn, cuda_fn, plain_fn, (), None, False,
                     row_rtol=EDGE_ROW_RTOL, **kw)
         took = collections.Counter(_build.KERNEL_LAUNCHES) - before
-        if not took or any(kernel != "tensor_core" for _, kernel in took):
+        if not took or any(k != kernel for _, k in took):
             fail("kernels", f"{key} {label}: launches by (op, kernel) {dict(took)}, not all "
-                            f"on the tensor-core kernel")
+                            f"on the {kernel} kernel")
 
     for dh in (cfg.head_dim, 64):
         for s in (17, 129, 1316):
@@ -778,16 +785,134 @@ def phase_kernel_edges(torch, flush) -> None:
                      envelope=(lambda: chunk_attention_ref(q.float(), kf, vf, pos),
                                ATTN_ENVELOPE[fmt]))
         del kc, vc, kf, vf
+    _decode_edges(torch, randn, edge)
     for dtype, kv_dtype, sq in ((bf16, bf16, 128), (bf16, torch.int8, 128),
                                 (bf16, torch.float8_e4m3fn, 128), (bf16, bf16, 17),
-                                (bf16, bf16, 16), (bf16, bf16, 1),
-                                (torch.float32, torch.float32, 128)):
+                                (bf16, bf16, 16), (bf16, bf16, 1), (bf16, torch.int8, 1),
+                                (bf16, torch.float8_e4m3fn, 1),
+                                (torch.float32, torch.float32, 128),
+                                (torch.float32, torch.float32, 1)):
         for dh in (cfg.head_dim, 64):
             for paged in (False, True):
                 kind, rows, threads, resident = occupancy(dtype, kv_dtype, dh, sq, paged=paged)
+                what = "query heads" if kind == "split_decode" else "query rows"
                 print(f"[kernels] flash_attention occupancy q {dtype} cache {kv_dtype} Sq={sq} "
-                      f"Dh={dh}{' paged' if paged else ''}: {kind} kernel, {rows}-row blocks "
-                      f"of {threads} threads, {resident} resident an SM (CUDA runtime)")
+                      f"Dh={dh}{' paged' if paged else ''}: {kind} kernel, blocks of {rows} "
+                      f"{what} and {threads} threads, {resident} resident an SM (CUDA runtime)")
+
+
+def _decode_edges(torch, randn, edge) -> None:
+    """The split decode kernel's edges (bf16 q, one row a slot), at qwen's
+    heads and Dh 128 and 64: B = 1 at pos 0, 63, 64, 127, 128 and 2047
+    (tile and split boundaries, the last slot), each with W >= kv_len
+    bit-identical to no window; B = 4 with a parked slot (pos MAX_LEN - 1),
+    a window of 200 (its start inside a split), a paged launch at page 16
+    bit-identical to the contiguous one, and int8 and e4m3 caches (inside
+    ATTN_ENVELOPE of the fp32 oracle, their page-16 launch bit-identical to
+    the contiguous one); the causal launches of one row (`_causal_row_edges`);
+    then MHA-16 (moonshot's H = KV = 16).  Every launch on the split decode
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention_ref import decode_attention_ref
+
+    cuda, ref = ops._cuda_decode_attention, decode_attention_ref
+    cfg = get_config(ARCH)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+
+    def pos_row(*positions):
+        return torch.tensor(positions, dtype=torch.int32, device="cuda")
+
+    def case(key, label, q, kk, vv, at, table=None, window=None, scales=(), contiguous=None,
+             oracle=None):
+        """One decode edge: with `contiguous` ((k, v) of the logical cache)
+        the launch must equal the contiguous one; else, unwindowed, W >=
+        kv_len must equal it."""
+        if contiguous is not None:
+            bitwise = (lambda: cuda(q, kk, vv, at, table, window, *scales),
+                       lambda: cuda(q, *contiguous, at, None, window, *scales),
+                       "bit-identical to the contiguous launch")
+        elif window is None:
+            bitwise = (lambda: cuda(q, kk, vv, at, table, 2 * MAX_LEN, *scales),
+                       lambda: cuda(q, kk, vv, at, table, None, *scales))
+        else:
+            bitwise = None
+        edge(key, label, q, lambda: cuda(q, kk, vv, at, table, window, *scales),
+             lambda: ref(q, kk, vv, at, table, window, *scales), kernel="split_decode",
+             bitwise=bitwise, envelope=oracle)
+
+    for dh in (cfg.head_dim, 64):
+        kc, vc = randn(4, MAX_LEN, kv, dh), randn(4, MAX_LEN, kv, dh)
+        for pos in (0, 63, 64, 127, 128, MAX_LEN - 1):
+            q = randn(1, 1, h, dh)
+            case("decode_attention/edge", f"B=1 pos={pos} Dh={dh}", q, kc[:1], vc[:1],
+                 pos_row(pos))
+        positions = (63, 128, 1500, MAX_LEN - 1)
+        at, q = pos_row(*positions), randn(4, 1, h, dh)
+        case("decode_attention/edge", f"B=4 pos={positions} (last parked) Dh={dh}", q, kc, vc,
+             at)
+        case("decode_attention/edge", f"B=4 W=200 Dh={dh}", q, kc, vc, at, window=200)
+        pk, table = _paged_pool(torch, kc, 16, positions, SEED + 16)
+        pv, _ = _paged_pool(torch, vc, 16, positions, SEED + 16)
+        case("decode_attention/edge", f"B=4 paged page=16 Dh={dh}", q, pk, pv, at, table,
+             contiguous=(kc, vc))
+        kf, vf = kc.float(), vc.float()
+        for fmt in ("int8", "fp8"):
+            (qk, ks), (qv, vs) = _quantize_rows(torch, kc, fmt), _quantize_rows(torch, vc, fmt)
+            oracle = (lambda: ref(q.float(), kf, vf, at), ATTN_ENVELOPE[fmt])
+            case(f"decode_attention/edge+kv_{fmt}", f"B=4 Dh={dh}", q, qk, qv, at,
+                 scales=(ks, vs), oracle=oracle)
+            pk, table = _paged_pool(torch, qk, 16, positions, SEED + 16)
+            pv, _ = _paged_pool(torch, qv, 16, positions, SEED + 16)
+            case(f"decode_attention/edge+kv_{fmt}", f"B=4 paged page=16 Dh={dh}", q, pk, pv,
+                 at, table, scales=(ks, vs), contiguous=(qk, qv), oracle=oracle)
+        _causal_row_edges(torch, randn, edge, h, kc, vc, at, positions)
+        del kc, vc, kf, vf, pk, pv
+    mcfg = get_config(MOE_ARCH)
+    mh, mkv, mdh = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    kc, vc = randn(4, MAX_LEN, mkv, mdh), randn(4, MAX_LEN, mkv, mdh)
+    case("decode_attention/edge+mha16", f"B=4 H=KV={mh} Dh={mdh}", randn(4, 1, mh, mdh), kc, vc,
+         pos_row(100, 700, 1600, MAX_LEN - 1))
+
+
+def _causal_row_edges(torch, randn, edge, h, kc, vc, at, positions) -> None:
+    """The causal bf16 launches of one row, which take the split decode
+    kernel as decode does: `attention` on a 1-token prompt (the static
+    diagonal, q_start = Sk - 1 = 0) and `windowed_attention` at S = 1, at
+    B = 4; a 1-row `chunk_attention` at the (B,) positions `at`, and a
+    causal limit below kv_len (kv_len = Sk, q_start = `at`: the causal mask
+    ends each row's keys), both bit-identical to the decode launch at the
+    same positions.  `kc`/`vc`: (B, Sk, KV, Dh) bf16 caches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_ref import chunk_attention_ref, masked_attention_ref
+
+    b, sk, kv, dh = kc.shape
+    q1, k1, v1 = randn(b, 1, h, dh), randn(b, 1, kv, dh), randn(b, 1, kv, dh)
+    edge("attention/edge", f"S=1 B={b} Dh={dh}", q1,
+         lambda: ops._cuda_attention(q1, k1, v1, causal=True),
+         lambda: ops._ref_attention(q1, k1, v1, causal=True), kernel="split_decode")
+    edge("windowed_attention/edge", f"S=1 B={b} W={WINDOW} Dh={dh}", q1,
+         lambda: ops._cuda_windowed_attention(q1, k1, v1, WINDOW),
+         lambda: ops._ref_windowed_attention(q1, k1, v1, WINDOW), kernel="split_decode")
+    q = randn(b, 1, h, dh)
+
+    def decode():
+        return ops._cuda_decode_attention(q, kc, vc, at)
+
+    edge("chunk_attention/edge", f"C=1 pos={positions} Dh={dh}", q,
+         lambda: ops._cuda_chunk_attention(q, kc, vc, at),
+         lambda: chunk_attention_ref(q, kc, vc, at), kernel="split_decode",
+         bitwise=(lambda: ops._cuda_chunk_attention(q, kc, vc, at), decode,
+                  "bit-identical to the decode launch"))
+    full = torch.full((b,), sk, dtype=torch.int32, device=kc.device)
+    edge("chunk_attention/edge", f"C=1 q_start={positions} kv_len={sk} Dh={dh}", q,
+         lambda: flash_attention(q, kc, vc, full, at, causal=True, op="chunk_attention"),
+         lambda: masked_attention_ref(q, kc, vc, full, at, causal=True, scale=dh ** -0.5),
+         kernel="split_decode",
+         bitwise=(lambda: flash_attention(q, kc, vc, full, at, causal=True,
+                                          op="chunk_attention"), decode,
+                  "bit-identical to the decode launch at kv_len = q_start + 1"))
 
 
 def _rel(got, want) -> float:
@@ -1003,10 +1128,10 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
            "median_ms": median_ms, "rows": (eng.chunk, eng.slots)}
     if cfg.family != "ssm":
         # every serve run here is bf16 with chunks of 128 rows: the library
-        # is to take the tensor-core kernel for each chunk, the FMA kernel
-        # for each decode tick
+        # is to take the tensor-core kernel for each chunk, the split decode
+        # kernel for each decode tick
         split = {op: _flash_by_kernel(run, op, want) for op, want in
-                 (("chunk_attention", "tensor_core"), ("decode_attention", "fma"))}
+                 (("chunk_attention", "tensor_core"), ("decode_attention", "split_decode"))}
         print(f"[serve] {label}: flash launches by kernel, as the library reported them: "
               f"{split}")
     return run

@@ -76,10 +76,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_rmsnorm.restype = i
     ip = ctypes.POINTER(i)
     lib.repro_flash_attention.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p, p, p,
-                                          i, i, i, i, i, f, i, i, p, ip]
+                                          p, i, i, i, i, i, f, i, i, p, ip]
     lib.repro_flash_attention.restype = i
     lib.repro_flash_attention_occupancy.argtypes = [i, i, i, i, i, i, ip, ip, ip, ip]
     lib.repro_flash_attention_occupancy.restype = i
+    lib.repro_flash_attention_workspace.argtypes = [i, i, i, i, i, i, i, i,
+                                                    ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_flash_attention_workspace.restype = i
     lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.repro_moe_gmm.restype = i
     lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]

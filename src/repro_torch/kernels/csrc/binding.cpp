@@ -15,13 +15,16 @@ int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, con
                                  const void* v, void* o, const int* kv_len, const int* q_start,
                                  const int* block_tables, int nblocks, int page, int num_pages,
                                  const int* win_start, const float* k_scale,
-                                 const float* v_scale, int b, int sq, int sk, int h, int kv,
-                                 float scale, int causal, int static_diag, void* stream,
+                                 const float* v_scale, float* ws, int b, int sq, int sk, int h,
+                                 int kv, float scale, int causal, int static_diag, void* stream,
                                  int* kernel);
 
 int repro_flash_attention_occupancy_query(int dtype, int code, int dh, int sq, int paged,
                                           int windowed, int* kernel, int* rows, int* threads,
                                           int* resident);
+
+int repro_flash_attention_workspace_query(int dtype, int code, int dh, int b, int sq, int sk,
+                                          int h, int kv, long long* floats);
 
 int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
                          void* out, long long t, int d, int f, int e, void* stream);
@@ -46,20 +49,29 @@ int repro_rmsnorm(int dtype, const void* x, const void* w, void* y, long long ro
 
 // block_tables, win_start and the scales may be null (contiguous KV, no
 // window, a full-precision cache); `code` is read only with the scales.
-// *kernel gets the kernel launched (0 the FMA kernel, 1 the tensor-core
-// kernel; -1 none).
+// ws: the float32 workspace repro_flash_attention_workspace sizes (null
+// when that is 0).  *kernel gets the kernel launched (0 the FMA kernel, 1
+// the tensor-core kernel, 2 the split decode kernel; -1 none).
 int repro_flash_attention(int dtype, int code, int dh, const void* q, const void* k,
                           const void* v, void* o, const void* kv_len, const void* q_start,
                           const void* block_tables, int nblocks, int page, int num_pages,
                           const void* win_start, const void* k_scale, const void* v_scale,
-                          int b, int sq, int sk, int h, int kv, float scale, int causal,
-                          int static_diag, void* stream, int* kernel) {
+                          void* ws, int b, int sq, int sk, int h, int kv, float scale,
+                          int causal, int static_diag, void* stream, int* kernel) {
   return repro_flash_attention_launch(
       dtype, code, dh, q, k, v, o, static_cast<const int*>(kv_len),
       static_cast<const int*>(q_start), static_cast<const int*>(block_tables), nblocks, page,
       num_pages, static_cast<const int*>(win_start), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), b, sq, sk, h, kv, scale, causal, static_diag, stream,
-      kernel);
+      static_cast<const float*>(v_scale), static_cast<float*>(ws), b, sq, sk, h, kv, scale,
+      causal, static_diag, stream, kernel);
+}
+
+// For a launch of q (B, Sq, H, Dh) in `dtype` over Sk keys of KV heads in
+// format `code` (-1: q's own dtype): the float32 workspace it needs, in
+// floats (0 unless it takes the split decode kernel).
+int repro_flash_attention_workspace(int dtype, int code, int dh, int b, int sq, int sk, int h,
+                                    int kv, long long* floats) {
+  return repro_flash_attention_workspace_query(dtype, code, dh, b, sq, sk, h, kv, floats);
 }
 
 // For a launch of Sq rows of q in `dtype` over a cache of format `code`
@@ -103,7 +115,9 @@ int repro_ssd_scan(int dtype, const void* x, const void* dt, const void* a, cons
 }
 
 const char* repro_error_string(int code) {
-  if (code < 0) return "unsupported dtype, head_dim, code format, split, chunk or state size";
+  if (code < 0)
+    return "unsupported dtype, head_dim, code format, split, chunk or state size, or a "
+           "missing workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

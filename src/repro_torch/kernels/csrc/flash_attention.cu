@@ -11,7 +11,7 @@
 // owns one (batch, head, q-block) and walks the key tiles itself, keeping
 // m, l and acc in registers (fp32).
 //
-// Semantics reproduced from the Pallas kernel, by both kernels below:
+// Semantics reproduced from the Pallas kernel, by every kernel below:
 //   * head hi reads KV head hi / group;
 //   * scores are masked to -1e30 where k_pos >= kv_len or, when causal,
 //     k_pos > q_pos + q_start (q_start per batch row), or, when windowed,
@@ -44,12 +44,14 @@
 // v_scale[b] a batch row).  The cache streams from device memory at 1 byte
 // an element.
 //
-// Two kernels, chosen by q's dtype and Sq (launch_rows, the one place the
-// rule lives); the entry point reports which one each launch took, and the
-// Python wrapper counts launches by it.  Each has an
-// instance per K/V type, head width (64, 128) and form: paging and the
-// window are template flags, so the contiguous, unwindowed instance runs
-// the plain loop (no page lookup, no window test).
+// Three kernels, chosen by q's dtype and Sq (launch_rows, the one place
+// the rule lives); the entry point reports which one each launch took, and
+// the Python wrapper counts launches by it.  Each has an instance per K/V
+// type and head width (64, 128).  flash_tc_kernel and flash_kernel have
+// one per form: paging and the window are template flags, so the
+// contiguous, unwindowed instance runs the plain loop (no page lookup, no
+// window test); flash_decode_kernel one per layout, the window read at
+// run time (it only moves the first live key).
 //
 //   * flash_tc_kernel: bf16 q with Sq > 16 (whole-prompt prefill, every
 //     chunked-prefill step, windowed_attention).  These do ~2 Dh = 256
@@ -95,12 +97,77 @@
 //     Filling the card: a whole 2048-token prompt at H = 40 is 1280
 //     blocks, two resident an SM (112 KB of shared memory at Dh = 128);
 //     a 128-token chunk is 80 blocks for 132 SMs, one an SM.
-//   * flash_kernel: fp32 q (the tests, the fp32 model phase) and every
-//     launch with Sq <= 16 (decode, chunks of 16 or fewer).  BQ query rows
-//     of TPR threads each, 256 threads — 64 rows of 4 for fp32 prefill and
-//     chunks, 16 rows of 16 for decode-sized launches, so a decode block
-//     still has 256 threads to stream the cache.  A thread holds 64 / TPR
-//     of its row's scores for the current key tile and Dh / TPR of its
+//   * flash_decode_kernel + flash_decode_combine: bf16 q with Sq = 1 (every
+//     decode_attention launch; also a causal launch of one row, a 1-token
+//     prompt or a 1-row chunk, whose one query sees keys below
+//     min(kv_len, q_start + 1)).  Decode reads the cache once, B *
+//     min(W, kv_len) * KV * Dh * 2 * sizeof(KV) bytes, and does 4 Dh
+//     operations a key row and head, ~5 a byte for qwen's group of 5 and
+//     ~1 at MHA-16: far below the tensor cores' ridge (~295 a byte), so
+//     the bound is bytes, and the design reads every byte once with its
+//     copies in flight.
+//     GQA packing: a block owns one (batch row, KV head, split of keys)
+//     and the query heads of that KV head's group as the rows of one m16
+//     tile (every head of qwen's 5, the rest of the 16 rows zero; groups
+//     above 16 take one block per 16 heads), so each K/V row is read once
+//     for the group.
+//     Split-KV: a split is 128 logical keys, two 64-key tiles, 128 threads.
+//     128 and not 256: qwen's serve decode (B = 4, pos 100/700/1600/2047)
+//     has 288 live blocks of 512, over 2 an SM, where 256 would give 152
+//     for 132 SMs.  The split boundaries are logical positions,
+//     independent of kv_len, the page size and the card, and their number
+//     depends on the static Sk alone: the grid reads nothing from the
+//     device (capturable in a CUDA graph), and a paged launch does the
+//     contiguous launch's arithmetic on the same keys.  A split wholly at
+//     or past kv_len (or the causal limit), or wholly below the window
+//     start, loads nothing and writes m = -1e30, l = 0.
+//     Copies: q and the split's K (copy group 0) and V (group 1) are all
+//     issued at the block's start as 16-byte cp.async, 64 KB in flight a
+//     block for bf16 at Dh = 128 and three blocks an SM: a buffer of four
+//     64-row stages that never wraps, since a split is the block's whole
+//     work; V lands while S is computed.  Rows not live (past kv_len or
+//     the causal limit, below the window start, on a page outside the
+//     pool) are zero-filled and not read, so the park page's poison never
+//     reaches a sum.  Paged launches translate each key's pool row once
+//     into a shared row table before the copies.  A 1-byte cache is
+//     copied as 1 byte and decoded exactly, K and then V, into one bf16
+//     tile with common.cuh's pair decoders (decode_tile); k_scale[b]
+//     folds into the score scale and v_scale[b] multiplies the finished
+//     output.
+//     Arithmetic: mma.sync, as flash_tc_kernel's.  Bytes bound a decode
+//     across the card, but a block does its arithmetic after its bytes
+//     land, with three blocks an SM to hide it: the fp32-FMA form of this
+//     kernel spent most of a block's time in its score and p.V loops
+//     (0.0311 ms for qwen's decode row on an H100, against 0.0055 ms for
+//     its bytes; PERF.md).  Each warp takes S = q K^T for 32 of the split's keys
+//     (exact bf16 products, fp32 sums), scaled by scale * k_scale *
+//     log2(e) and masked to -1e30; each row's max over the split reduces
+//     by shuffles and then across the warps in warp order; p = exp2(s -
+//     m) and its sum l stay fp32; p is rounded to bf16 for P.V, the one
+//     rounding the Pallas kernel does not make (2^-9 of each weight, the
+//     size of the bf16 output's own rounding), as in flash_tc_kernel;
+//     each warp then takes a quarter of the Dh output columns over all
+//     128 keys, reading p from shared memory.  The block writes each
+//     head's (m, l, acc[Dh]) of the split to a float32 workspace of B * H
+//     * splits * (Dh + 2) floats, which the wrapper allocates (the kernel
+//     allocates nothing) at the size repro_flash_attention_workspace_query
+//     gives: the rule has one owner.  The workspace pointer is a kernel
+//     argument of its own, so Params, which the other kernels take, is
+//     unchanged.
+//     Combine: a second kernel reads each (b, h)'s splits in split order
+//     0, 1, ..., n - 1 and writes sum(w acc) / max(sum(w l), 1e-30) with
+//     w = exp2(m_split - m), times v_scale[b], as bf16.  An empty split's
+//     weight is exp2(-1e30 - m) = 0: it is skipped, which adds exactly
+//     what its 0 would.  No atomics: two launches give the same bits, the
+//     paged launch the contiguous one's, and W >= kv_len (window start <=
+//     0) the unwindowed one's.  Both kernels count as one launch of the
+//     op.
+//   * flash_kernel: fp32 q (the tests, the fp32 model phase), and bf16 q
+//     with 2-16 rows (no serve run takes it: chunks are padded to 128).  BQ
+//     query rows of TPR threads each, 256 threads — 64 rows of 4 for more
+//     than 16 rows, 16 rows of 16 for 16 or fewer, so a decode-sized
+//     block still has 256 threads to stream the cache.  A thread holds 64 /
+//     TPR of its row's scores for the current key tile and Dh / TPR of its
 //     row's output accumulators.  Q (pre-scaled), K and V tiles are
 //     loaded in 16-byte vectors and staged in shared memory as fp32 (a
 //     1-byte code converted exactly and multiplied by its row's scale, as
@@ -109,10 +176,8 @@
 //     Row max and row sum reduce over the row's threads with shuffles, and
 //     p is broadcast from its owner by shuffle for the p.V product.  fp32
 //     q stays on fp32 FMAs: TF32 keeps ~10 bits of q, outside fp32's
-//     tolerance, and no bf16 serve run takes it.  Decode (one query a row)
-//     is bound by reading the KV cache, B * min(W, kv_len) * KV * Dh * 2 *
-//     sizeof(KV) bytes; this kernel is far from that bound: it wastes the
-//     15 spare rows of its 16-row query block, and each of a GQA group's
+//     tolerance, and no bf16 serve run takes it.  An fp32 decode wastes
+//     the 15 spare rows of its 16-row block, and each of a GQA group's
 //     heads reads the group's K/V again.
 #include <type_traits>
 
@@ -692,33 +757,330 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_tc_kernel(const Params p)
 }
 
 // --------------------------------------------------------------------------
+// The split-KV decode kernel: bf16 q, Sq = 1
+// --------------------------------------------------------------------------
+constexpr int kSplit = 128;          // keys a split: two 64-key tiles
+constexpr int kDecThreads = 128;     // 4 warps, 32 keys each for S
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecHeads = 16;        // query heads a block (of one KV head's group): one m16 tile
+
+template <typename KV, int DH>
+constexpr size_t dec_smem_bytes() {
+  // q, p (bf16, 16 rows) and the split's K and V: bf16 tiles, or the
+  // 1-byte codes of both and one bf16 tile each is decoded into in turn
+  return static_cast<size_t>(kDecHeads * DH * 2 + kDecHeads * kSplit * 2 +
+                             (sizeof(KV) == 1 ? 2 * kSplit * DH + kSplit * DH * 2
+                                              : 2 * kSplit * DH * 2));
+}
+
+// Decodes the split's 128 rows of 1-byte codes into a bf16 tile (two
+// 64-row halves; the swizzle repeats every 8 rows).
+template <typename KV, int DH>
+__device__ __forceinline__ void decode_split(const uint8_t* codes, uint8_t* out) {
+  decode_tile<KV, DH>(codes, out);
+  decode_tile<KV, DH>(codes + kBK * DH, out + kBK * DH * 2);
+}
+
+// bf16 q, Sq = 1; KV: bf16 or a 1-byte code; PAGED as flash_kernel's (the
+// window is read at run time: it only moves the first live key).  Grid
+// (splits, KV * head chunks, B), 128 threads.  Block (s, y, b) owns keys
+// [128 s, 128 s + 128) of batch row b, KV head y / chunks, and the up to
+// 16 query heads of chunk y % chunks of that KV head's group, the rows of
+// one m16 tile (rows past the group are zero).  It writes each head's (m,
+// l, acc[DH]) of the split to the workspace ws, and flash_decode_combine
+// reduces the splits.
+template <typename KV, int DH, bool PAGED>
+__global__ void __launch_bounds__(kDecThreads, 3) flash_decode_kernel(const Params p, float* ws) {
+  using T = __nv_bfloat16;
+  constexpr bool QUANT = !std::is_same<T, KV>::value;
+  constexpr int ES = static_cast<int>(sizeof(KV));
+  constexpr int CPR = DH * ES / 16;          // 16-byte chunks a K/V row as copied
+  constexpr int RPP = kDecThreads / CPR;     // rows a pass of the block's copies
+  constexpr int BCPR = DH / 8;               // 16-byte chunks a bf16 row
+  constexpr int PCPR = kSplit / 8;           // 16-byte chunks a row of p
+  constexpr int KV_BYTES = kSplit * DH * ES;
+  constexpr int DW = DH / kDecWarps;         // output columns a warp
+  static_assert(kSplit % RPP == 0 && BCPR % 8 == 0 && DW % 16 == 0 && kDecThreads == kSplit,
+                "tile maps; one table entry a thread");
+  extern __shared__ __align__(128) uint8_t dec_smem[];
+  const uint32_t q_s = smem_addr(dec_smem);           // [16][DH] bf16, swizzled
+  const uint32_t p_s = q_s + kDecHeads * DH * 2;      // [16][kSplit] bf16, swizzled
+  const uint32_t k_s = p_s + kDecHeads * kSplit * 2;  // K as copied
+  const uint32_t v_s = k_s + KV_BYTES;                // V as copied
+  const uint32_t bf = v_s + KV_BYTES;                 // 1-byte cache: the decoded tile
+  __shared__ float red[2][kDecWarps][kDecHeads];      // by warp: each row's max, then sum
+  __shared__ int tok_row[PAGED ? kSplit : 1];         // paged: pool token row of each key
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ns = gridDim.x, k0 = blockIdx.x * kSplit;
+  const int chunks = (p.group + kDecHeads - 1) / kDecHeads;
+  const int kvh = blockIdx.y / chunks;
+  const int h0 = kvh * p.group + (blockIdx.y % chunks) * kDecHeads;  // the block's first head
+  const int nh = min(kDecHeads, (kvh + 1) * p.group - h0);
+  const int bi = blockIdx.z;
+  int klim = min(p.kv_len[bi], p.sk);
+  if (p.causal) klim = min(klim, p.q_start[bi] + 1);
+  const int klo = p.win_start != nullptr ? max(p.win_start[bi], 0) : 0;
+  // the workspace: (m, l) of (b, h, split), then acc[DH] of each
+  float* const ws_ml = ws;
+  float* const ws_acc = ws + 2LL * gridDim.z * p.h * ns;
+  const long long row0 = (static_cast<long long>(bi) * p.h + h0) * ns + blockIdx.x;
+
+  if (k0 >= klim || k0 + kSplit <= klo) {  // an empty split: nothing loaded, m = -1e30, l = 0
+    if (tid < nh) {
+      ws_ml[(row0 + tid * ns) * 2] = kNegInf;
+      ws_ml[(row0 + tid * ns) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+  float sc = p.scale * kLog2e;
+  if constexpr (QUANT) sc = p.scale * p.k_scale[bi] * kLog2e;
+  if constexpr (PAGED) {
+    const int kpos = k0 + tid;
+    int tok = -1;
+    if (kpos >= klo && kpos < klim) {
+      const int pg = p.block_tables[static_cast<long long>(bi) * p.nblocks + kpos / p.page];
+      if (pg >= 0 && pg < p.num_pages) tok = pg * p.page + kpos % p.page;
+    }
+    tok_row[tid] = tok;
+    __syncthreads();
+  }
+
+  // copy group 0: q (rows past the group zero-filled) and K; group 1: V.
+  // 16 bytes a copy; key rows not live are zero-filled and not read.
+  const T* __restrict__ qg = static_cast<const T*>(p.q);
+#pragma unroll
+  for (int j = 0; j < kDecHeads * BCPR / kDecThreads; ++j) {
+    const int r = tid / BCPR + j * (kDecThreads / BCPR), c = tid % BCPR;
+    const bool ok = r < nh;
+    cp_async16(q_s + swz(r, c, BCPR),
+               qg + (static_cast<long long>(bi) * p.h + h0 + (ok ? r : 0)) * DH + c * 8, ok);
+  }
+  const KV* __restrict__ kg = static_cast<const KV*>(p.k);
+  const KV* __restrict__ vg = static_cast<const KV*>(p.v);
+  const int crow = tid / CPR, cchunk = tid % CPR;
+  auto copy = [&](const KV* src, uint32_t dst) {
+#pragma unroll
+    for (int j = 0; j < kSplit / RPP; ++j) {
+      const int r = crow + RPP * j, kp = k0 + r;
+      bool ok;
+      long long ro;
+      if constexpr (PAGED) {
+        const int tok = tok_row[r];
+        ok = tok >= 0;
+        ro = static_cast<long long>(tok) * p.kv;
+      } else {
+        ok = kp >= klo && kp < klim;
+        ro = (static_cast<long long>(bi) * p.sk + kp) * p.kv;
+      }
+      const long long off = ok ? (ro + kvh) * DH + cchunk * (16 / ES) : 0;
+      cp_async16(dst + (QUANT ? static_cast<uint32_t>((r * CPR + cchunk) * 16)
+                              : swz(r, cchunk, CPR)),
+                 src + off, ok);
+    }
+  };
+  copy(kg, k_s);
+  cp_async_commit();
+  copy(vg, v_s);
+  cp_async_commit();
+
+  cp_async_wait<1>();  // this thread's q and K copies landed
+  __syncthreads();     // ... every thread's
+  uint32_t ks = k_s, vs = v_s;
+  if constexpr (QUANT) {
+    decode_split<KV, DH>(dec_smem + (k_s - q_s), dec_smem + (bf - q_s));
+    __syncthreads();
+    ks = vs = bf;
+  }
+
+  // S = q K^T: the 16 head rows against this warp's 32 keys, fp32 sums of
+  // exact bf16 products
+  uint32_t qf[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(qf[kk], q_s + swz(lane & 15, 2 * kk + (lane >> 4), BCPR));
+  const int kw = warp * 32;  // the warp's first key in the split
+  float s[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + swz(kw + n2 * 16 + (lane & 7) + ((lane >> 4) << 3),
+                          2 * kk + ((lane >> 3) & 1), BCPR));
+      mma_bf16(s[2 * n2], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+    }
+  }
+
+  // the split's softmax: scale (times k_scale, in log2 units) and mask;
+  // each row's max over the split (a row's 4 lanes by shuffles, then the
+  // warps in order); p = exp2(s - m) and its sum in fp32; p to bf16 for P.V
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kpos = k0 + kw + n * 8 + 2 * t4 + (e & 1);
+      s[n][e] = kpos >= klo && kpos < klim ? s[n][e] * sc : kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    if (t4 == 0) red[0][warp][g + 8 * r] = mx[r];
+  }
+  __syncthreads();
+  float m[2], l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = red[0][0][g + 8 * r];
+#pragma unroll
+    for (int w = 1; w < kDecWarps; ++w) m[r] = fmaxf(m[r], red[0][w][g + 8 * r]);
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = exp2f(s[n][e] - m[e >> 1]);  // 0 for a masked key
+      l[e >> 1] += s[n][e];
+    }
+    // p (bf16) of keys kw + 8 n + 2 t4 + {0, 1}, rows g and g + 8
+    const int key = kw + n * 8 + 2 * t4;
+    const uint32_t at = swz(g, key >> 3, PCPR) + (key & 7) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(p_s + at), "r"(pack_bf16(s[n][0], s[n][1])));
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(p_s + at + 8 * PCPR * 16),
+                 "r"(pack_bf16(s[n][2], s[n][3])));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (t4 == 0) red[1][warp][g + 8 * r] = l[r];
+  }
+
+  cp_async_wait<0>();  // this thread's V copies landed
+  __syncthreads();     // ... every thread's; p stored; K no longer read
+  if constexpr (QUANT) {
+    decode_split<KV, DH>(dec_smem + (v_s - q_s), dec_smem + (bf - q_s));
+    __syncthreads();
+  }
+
+  // acc = P V: this warp's DW output columns over the split's 128 keys
+  float o[DW / 8][4];
+#pragma unroll
+  for (int d = 0; d < DW / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kSplit / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, p_s + swz(lane & 15, 2 * kk + (lane >> 4), PCPR));
+#pragma unroll
+    for (int d2 = 0; d2 < DW / 16; ++d2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vs + swz(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                (warp * DW) / 8 + 2 * d2 + (lane >> 4), BCPR));
+      mma_bf16(o[2 * d2], a, b[0], b[1]);
+      mma_bf16(o[2 * d2 + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    if (row < nh) {
+      float* dst = ws_acc + (row0 + row * ns) * DH + warp * DW + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < DW / 8; ++d)
+        *reinterpret_cast<float2*>(dst + 8 * d) = make_float2(o[d][2 * r], o[d][2 * r + 1]);
+    }
+  }
+  if (tid < nh) {
+    float mm = red[0][0][tid], ll = red[1][0][tid];
+#pragma unroll
+    for (int w = 1; w < kDecWarps; ++w) {
+      mm = fmaxf(mm, red[0][w][tid]);
+      ll += red[1][w][tid];
+    }
+    ws_ml[(row0 + tid * ns) * 2] = mm;
+    ws_ml[(row0 + tid * ns) * 2 + 1] = ll;
+  }
+}
+
+// Grid (H, B), DH threads: thread d of block (h, b) reduces column d of
+// head h's splits in split order, 0 .. ns - 1, and writes acc / max(l,
+// 1e-30), times v_scale[b], as bf16.  The splits' (m, l) are staged in
+// shared memory first.  An empty split (l = 0) has weight exp2(-1e30 - m)
+// = 0: it is skipped, which adds exactly what its 0 would, and its acc
+// (never written) is loaded but not used.
+template <int DH>
+__global__ void __launch_bounds__(DH) flash_decode_combine(const Params p, const float* ws,
+                                                            int ns) {
+  extern __shared__ float ml_s[];  // [ns][2]
+  const int hi = blockIdx.x, bi = blockIdx.y, d = threadIdx.x;
+  const long long row = (static_cast<long long>(bi) * p.h + hi) * ns;
+  const float* __restrict__ ml = ws + row * 2;
+  const float* __restrict__ acc = ws + 2LL * gridDim.y * p.h * ns + row * DH + d;
+  for (int s = d; s < 2 * ns; s += DH) ml_s[s] = ml[s];
+  __syncthreads();
+  float m = kNegInf;
+  for (int s = 0; s < ns; ++s) m = fmaxf(m, ml_s[2 * s]);
+  float l = 0.f, a = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < ns; ++s) {
+    const float ls = ml_s[2 * s + 1];
+    const float x = acc[static_cast<long long>(s) * DH];
+    const float w = exp2f(ml_s[2 * s] - m);
+    l = ls > 0.f ? fmaf(w, ls, l) : l;
+    a = ls > 0.f ? fmaf(w, x, a) : a;
+  }
+  float x = a / fmaxf(l, 1e-30f);
+  if (p.v_scale != nullptr) x *= p.v_scale[bi];
+  static_cast<__nv_bfloat16*>(p.o)[(static_cast<long long>(bi) * p.h + hi) * DH + d] =
+      __float2bfloat16(x);
+}
+
+// --------------------------------------------------------------------------
 // Launches
 // --------------------------------------------------------------------------
 
 // The kernels a launch may take, as repro_flash_attention reports them.
-enum KernelId { kFmaKernel = 0, kTensorCoreKernel = 1 };
+enum KernelId { kFmaKernel = 0, kTensorCoreKernel = 1, kSplitDecodeKernel = 2 };
 
-// What a launch took: its kernel, query rows a block and threads.  With
-// `query` set nothing is launched, and `resident` gets the blocks of that
-// instance the CUDA runtime keeps on one SM (repro_flash_attention_occupancy).
+// What the launch path does: launch, or only report the instance's blocks
+// resident on an SM (repro_flash_attention_occupancy), or only the fp32
+// workspace it needs (repro_flash_attention_workspace).
+enum Mode { kLaunch = 0, kOccupancy = 1, kWorkspace = 2 };
+
+// What a launch took: its kernel, query rows a block and threads, the
+// blocks of that instance the CUDA runtime keeps on one SM (kOccupancy),
+// and the workspace floats it needs.
 struct Launch {
-  bool query;
+  int mode;
   int kernel, rows, threads, resident;
+  long long workspace;
+  float* ws;  // the workspace given to a launch (not part of Params: the other kernels'
+              // parameters stay as they were)
 };
 
-template <typename Kernel>
+// Launches `kernel` (p, extra...) or, by at.mode, only reports it.
+template <typename Kernel, typename... Extra>
 int start(Kernel kernel, KernelId id, dim3 grid, int threads, size_t smem, int rows,
-          const Params& p, cudaStream_t stream, Launch& at) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+          const Params& p, cudaStream_t stream, Launch& at, Extra... extra) {
   at.kernel = id;
   at.rows = rows;
   at.threads = threads;
-  if (at.query)
+  if (at.mode == kWorkspace) return 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (at.mode == kOccupancy)
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&at.resident, kernel, threads, smem));
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -734,6 +1096,27 @@ int launch_tc(const Params& p, int b, cudaStream_t stream, Launch& at) {
   const dim3 grid(p.h, (p.sq + kTcRows - 1) / kTcRows, b);
   return start(&flash_tc_kernel<KV, DH, PAGED, WINDOWED>, kTensorCoreKernel, grid,
                kTcThreads, tc_smem_bytes<KV, DH>(), kTcRows, p, stream, at);
+}
+
+// The split decode kernel, then its combine: one launch of the op.  The
+// splits are fixed in logical key positions and their number depends on
+// Sk alone, so the grid and the workspace (B * H * splits * (DH + 2)
+// floats) read nothing from the device.
+template <typename KV, int DH>
+int launch_decode(const Params& p, int b, cudaStream_t stream, Launch& at) {
+  const int ns = max((p.sk + kSplit - 1) / kSplit, 1);
+  const int chunks = (p.group + kDecHeads - 1) / kDecHeads;
+  at.workspace = static_cast<long long>(b) * p.h * ns * (DH + 2);
+  if (at.mode == kLaunch && at.ws == nullptr) return -1;
+  const dim3 grid(ns, p.kv * chunks, b);
+  const int err = start(p.block_tables != nullptr ? &flash_decode_kernel<KV, DH, true>
+                                                  : &flash_decode_kernel<KV, DH, false>,
+                        kSplitDecodeKernel, grid, kDecThreads, dec_smem_bytes<KV, DH>(),
+                        kDecHeads, p, stream, at, at.ws);
+  if (err != 0 || at.mode != kLaunch) return err;
+  flash_decode_combine<DH><<<dim3(p.h, b), DH, 2 * ns * sizeof(float), stream>>>(
+      p, static_cast<const float*>(at.ws), ns);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // TC: the tensor-core kernel, else flash_kernel with BQ rows of TPR threads.
@@ -754,12 +1137,15 @@ int launch_form(const Params& p, int b, cudaStream_t stream, Launch& at) {
 
 template <typename T, typename KV, int DH>
 int launch_rows(const Params& p, int b, cudaStream_t stream, Launch& at) {
-  // decode-sized launches: 16 rows of 16 threads; bf16 q with more rows:
-  // the tensor cores; fp32 q with more rows: 64 rows of 4
+  // bf16 q: one row (decode) takes the split decode kernel, more than 16
+  // the tensor cores; fp32 q, and bf16 with 2-16 rows, the FMA kernel: 16
+  // rows of 16 threads up to 16 rows, 64 rows of 4 above
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (p.sq == 1) return launch_decode<KV, DH>(p, b, stream, at);
+    if (p.sq > 16) return launch_form<true, T, KV, DH, 0, 0>(p, b, stream, at);
+  }
   if (p.sq <= 16) return launch_form<false, T, KV, DH, 16, 16>(p, b, stream, at);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_form<true, T, KV, DH, 0, 0>(p, b, stream, at);
-  else return launch_form<false, T, KV, DH, 64, 4>(p, b, stream, at);
+  return launch_form<false, T, KV, DH, 64, 4>(p, b, stream, at);
 }
 
 template <typename T, typename KV>
@@ -800,6 +1186,26 @@ int launch_dtype(int dtype, int code, int dh, const Params& p, int b, cudaStream
   }
 }
 
+// The launch path without a launch (kOccupancy or kWorkspace) for q of
+// `dtype` over a cache of format `code` (-1: q's own dtype): the device
+// pointers only select the instance, so any non-null pointer stands in.
+int query(int mode, int dtype, int code, int dh, int b, int sq, int sk, int h, int kv, int paged,
+          int windowed, Launch& at) {
+  static const int kAny = 0;
+  static const float kAnyScale = 0.f;
+  Params p{};
+  p.sq = sq;
+  p.sk = sk;
+  p.h = h;
+  p.kv = kv;
+  p.group = kv > 0 ? h / kv : 0;
+  p.block_tables = paged ? &kAny : nullptr;
+  p.win_start = windowed ? &kAny : nullptr;
+  p.k_scale = p.v_scale = code >= 0 ? &kAnyScale : nullptr;
+  at = Launch{mode, -1, 0, 0, 0, 0, nullptr};
+  return launch_dtype(dtype, code, dh, p, b, nullptr, at);
+}
+
 }  // namespace
 
 // q (B, Sq, H, Dh) and o (B, Sq, H, Dh) contiguous; k/v contiguous, either
@@ -809,16 +1215,19 @@ int launch_dtype(int dtype, int code, int dh, const Params& p, int b, cudaStream
 // k_scale and v_scale null, or 1-byte codes of format `code` (int8 0,
 // e4m3 1) with k_scale and v_scale (B,) float32 on the device.  kv_len,
 // q_start and (when not null) win_start are (B,) int32 on the device; q,
-// k, v and o are 16-byte aligned.  Launches on `stream`; returns the
-// cudaError_t of the launch (0 = ok) or -1 for an unsupported dtype, code
-// format or head_dim.  *kernel gets the kernel launched (0 flash_kernel,
-// 1 flash_tc_kernel), or -1 when nothing was launched.
+// k, v and o are 16-byte aligned.  ws: a float32 workspace on the device
+// of the floats repro_flash_attention_workspace_query gives (null when it
+// gives 0).  Launches on `stream`; returns the cudaError_t of the launch
+// (0 = ok) or -1 for an unsupported dtype, code format or head_dim, or a
+// missing workspace.  *kernel gets the kernel launched (0 flash_kernel, 1
+// flash_tc_kernel, 2 flash_decode_kernel and its combine), or -1 when
+// nothing was launched.
 int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, const void* k,
                                  const void* v, void* o, const int* kv_len, const int* q_start,
                                  const int* block_tables, int nblocks, int page, int num_pages,
                                  const int* win_start, const float* k_scale,
-                                 const float* v_scale, int b, int sq, int sk, int h, int kv,
-                                 float scale, int causal, int static_diag, void* stream,
+                                 const float* v_scale, float* ws, int b, int sq, int sk, int h,
+                                 int kv, float scale, int causal, int static_diag, void* stream,
                                  int* kernel) {
   *kernel = -1;
   if (b == 0 || sq == 0 || h == 0) return 0;
@@ -826,7 +1235,7 @@ int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, con
   const Params p{q,       k,       v,  o,  kv_len, q_start, block_tables, win_start,
                  k_scale, v_scale, sq, sk, h,      kv,      h / kv,       page,
                  num_pages, nblocks, scale, causal, static_diag};
-  Launch at{false, -1, 0, 0, 0};
+  Launch at{kLaunch, -1, 0, 0, 0, 0, ws};
   const int err = launch_dtype(dtype, code, dh, p, b, static_cast<cudaStream_t>(stream), at);
   if (err == 0) *kernel = at.kernel;
   return err;
@@ -835,23 +1244,29 @@ int repro_flash_attention_launch(int dtype, int code, int dh, const void* q, con
 // For a launch of Sq query rows of q in `dtype` over a cache of format
 // `code` (-1: q's own dtype), head width dh, paged and windowed or not, on
 // the current device: the kernel it takes (as *kernel above), that
-// kernel's query rows a block, its threads, and its blocks resident on one
-// SM as the CUDA runtime reports them.  Launches nothing.
+// kernel's query rows a block (the split decode kernel: query heads), its
+// threads, and its blocks resident on one SM as the CUDA runtime reports
+// them.  Launches nothing.
 int repro_flash_attention_occupancy_query(int dtype, int code, int dh, int sq, int paged,
                                           int windowed, int* kernel, int* rows, int* threads,
                                           int* resident) {
-  static const int kAny = 0;          // stands for a device pointer: only its presence
-  static const float kAnyScale = 0.f;  // selects the instance
-  Params p{};
-  p.sq = sq;
-  p.block_tables = paged ? &kAny : nullptr;
-  p.win_start = windowed ? &kAny : nullptr;
-  p.k_scale = p.v_scale = code >= 0 ? &kAnyScale : nullptr;
-  Launch at{true, -1, 0, 0, 0};
-  const int err = launch_dtype(dtype, code, dh, p, 1, nullptr, at);
+  Launch at;
+  const int err = query(kOccupancy, dtype, code, dh, 1, sq, 0, 0, 0, paged, windowed, at);
   *kernel = at.kernel;
   *rows = at.rows;
   *threads = at.threads;
   *resident = at.resident;
+  return err;
+}
+
+// For a launch of q (B, Sq, H, Dh) in `dtype` over Sk logical keys of KV
+// heads in format `code` (-1: q's own dtype): *floats gets the float32
+// workspace floats the launch needs (0 unless it takes the split decode
+// kernel), by the rule the launch itself applies.  Touches no device.
+int repro_flash_attention_workspace_query(int dtype, int code, int dh, int b, int sq, int sk,
+                                          int h, int kv, long long* floats) {
+  Launch at;
+  const int err = query(kWorkspace, dtype, code, dh, b, sq, sk, h, kv, 0, 0, at);
+  *floats = at.workspace;
   return err;
 }

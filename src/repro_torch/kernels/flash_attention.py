@@ -24,12 +24,27 @@ codes, and the kernel multiplies each loaded row by its batch row's
 float32 scale before the fp32 math; the wrapper broadcasts the () or
 (B,) scales to (B,) rows on q's device.
 
-The library picks one of two kernels by q's dtype and Sq: bf16 q with
-more than 16 rows (whole prompts, prefill chunks) runs on the bf16 tensor
-cores with fp32 sums, p rounded to bf16 for p.V; fp32 q, and every launch
-of 16 rows or fewer (decode), on fp32 FMAs.  It reports the kernel each
-launch took, and the wrapper counts it by (op, kernel) in
-`_build.KERNEL_LAUNCHES` (names in `KERNELS`).
+The library picks one of three kernels by q's dtype and Sq, and reports
+the kernel each launch took; the wrapper counts it by (op, kernel) in
+`_build.KERNEL_LAUNCHES` (names in `KERNELS`):
+
+  * ``tensor_core`` — bf16 q with more than 16 rows (whole prompts,
+    prefill chunks, windowed_attention): bound by the bf16 tensor cores
+    (~2 Dh operations a key byte, times the rows), so the products run
+    there, `mma.sync` with fp32 sums and p rounded to bf16 for p.V;
+  * ``split_decode`` — bf16 q with one row (every decode, and a causal
+    launch of one row, whose limit is min(kv_len, q_start + 1)): bound by
+    reading the cache once (~5 operations a byte at qwen's GQA group of
+    5), so a block owns one (batch row, KV head, 128-key split) and the
+    query heads of that KV head's group as the 16 rows of one
+    tensor-core tile, and reads each K/V row once with all its copies in
+    flight; `mma.sync` with fp32 sums and p rounded to bf16 for p.V, so
+    the arithmetic after the bytes land stays short; a second kernel
+    combines the splits in split order.  Its fp32 workspace of partial
+    results is allocated here, at the size the library's own rule gives
+    (`_workspace_floats`); both kernels count as one launch;
+  * ``fma`` — fp32 q, and bf16 q with 2-16 rows (no serve run): fp32
+    FMAs.
 
 The arguments are checked as the kernel needs them on either device
 (dtype, shapes, one device, layout); then a CUDA tensor launches the
@@ -41,6 +56,7 @@ serves in the launch count (`_build.LAUNCHES`).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,7 +66,7 @@ from repro_torch.kernels.flash_attention_ref import check_scales, masked_attenti
 __all__ = ["flash_attention", "occupancy", "HEAD_DIMS", "KERNELS"]
 
 HEAD_DIMS = (64, 128)   # head widths the kernel is instantiated for
-KERNELS = ("fma", "tensor_core")   # the library's kernel numbers, by name
+KERNELS = ("fma", "tensor_core", "split_decode")   # the library's kernel numbers, by name
 
 
 def occupancy(dtype: torch.dtype, kv_dtype: torch.dtype, dh: int, sq: int, *,
@@ -68,6 +84,20 @@ def occupancy(dtype: torch.dtype, kv_dtype: torch.dtype, dh: int, sq: int, *,
     _build.check(lib, err, "flash_attention occupancy")
     kernel, rows, threads, resident = (v.value for v in vals)
     return KERNELS[kernel], rows, threads, resident
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_floats(dtype: int, code: int, dh: int, b: int, sq: int, sk: int, h: int,
+                      kv: int) -> int:
+    """float32 workspace floats a launch needs, as the library's own rule
+    gives them (the split decode kernel's partial results; 0 for the other
+    kernels); code: the cache's format, -1 for q's own dtype."""
+    lib = _build.library()
+    n = ctypes.c_longlong()
+    _build.check(lib, lib.repro_flash_attention_workspace(dtype, code, dh, b, sq, sk, h, kv,
+                                                          ctypes.byref(n)),
+                 "flash_attention workspace")
+    return n.value
 
 
 def _rows(x, default: int, b: int, device) -> torch.Tensor:
@@ -160,7 +190,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if quantized:
         k_scale, v_scale = (_scale_row(x, b, q.device) for x in (k_scale, v_scale))
     kv_len = _rows(kv_len, sk, b, q.device)
-    q_start = _rows(q_start, sk - sq, b, q.device)
+    # q_start is read only by the causal mask: a launch without one passes
+    # kv_len in its place, with no fill of its own
+    q_start = _rows(q_start, sk - sq, b, q.device) if causal else kv_len
     win_start = None
     if window is not None:
         # ws = kv_len - Sq - W + 1; a width past Sk + Sq masks nothing more,
@@ -178,6 +210,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(built for {HEAD_DIMS})")
     lib = _build.library()
     out = torch.empty_like(q)
+    floats = _workspace_floats(code, _build.CODE_FORMATS[k.dtype] if quantized else -1, dh, b,
+                               sq, sk, h, kv)
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     took = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
@@ -187,8 +222,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[0] if paged else 0,
             None if win_start is None else win_start.data_ptr(),
             k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-            b, sq, sk, h, kv, float(scale), int(causal), int(static_diag), _build.stream_of(q),
-            ctypes.byref(took))
+            None if ws is None else ws.data_ptr(), b, sq, sk, h, kv, float(scale), int(causal),
+            int(static_diag), _build.stream_of(q), ctypes.byref(took))
     _build.check(lib, err, "flash_attention")
     _build.LAUNCHES[op] += 1
     if took.value >= 0:

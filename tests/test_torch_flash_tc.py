@@ -375,9 +375,9 @@ def test_cpu_call_counts_no_launch(op, sq):
 
 
 @pytest.mark.parametrize("op, launches, want", [
-    ("chunk_attention", 59 * 48, {"tensor_core": 59 * 48, "fma": 0}),
-    ("decode_attention", 77 * 48, {"tensor_core": 0, "fma": 77 * 48}),
-    ("attention", 48, {"tensor_core": 48, "fma": 0})])
+    ("chunk_attention", 59 * 48, {"tensor_core": 59 * 48, "fma": 0, "split_decode": 0}),
+    ("decode_attention", 77 * 48, {"tensor_core": 0, "fma": 0, "split_decode": 77 * 48}),
+    ("attention", 48, {"tensor_core": 48, "fma": 0, "split_decode": 0})])
 def test_flash_launches_split_by_kernel_on_stub_counts(op, launches, want):
     """A bf16 serve run of 59 prefill steps (chunks of 128) and 77 decode
     ticks over 48 layers, and a whole-prompt prefill, as the library would
@@ -400,6 +400,7 @@ def test_flash_launch_split_refuses_counts_it_cannot_explain():
     run = {"launches": {"chunk_attention": 10},
            "kernel_launches": {("chunk_attention", "tensor_core"): 9,
                                ("chunk_attention", "fma"): 1}}
-    assert smoke._flash_by_kernel(run, "chunk_attention") == {"tensor_core": 9, "fma": 1}
+    assert smoke._flash_by_kernel(run, "chunk_attention") == {"tensor_core": 9, "fma": 1,
+                                                               "split_decode": 0}
     with pytest.raises(smoke.PhaseError, match="not all on the tensor_core kernel"):
         smoke._flash_by_kernel(run, "chunk_attention", "tensor_core")
