@@ -98,7 +98,17 @@ Phases, each one printed line per case, each raising on failure:
                shapes [64, 2048, 1408] and [64, 1408, 2048], fp32 and bf16,
                at T = 24 (decode, routed, empty experts), 768 (a 128-token
                chunk x top-6), 7896 (the whole prompt of request 0) and 768
-               rows in one expert, each launch pair torch.equal; chunk and
+               rows in one expert, each launch pair torch.equal, and on the
+               kernel the library reported, which each case names: bf16
+               with T >= E (64) on the tensor-core kernel, the rest on the
+               FMA kernel; the tensor-core kernel's edges at both shapes
+               (T = 64 at the cut and 63 below it, groups of 1, 16, 17, 64,
+               65 and 129 rows, 300 rows in the last expert, sizes summing
+               to 200 of T = 300 with the tail rows 0), each the same way,
+               and again at w [64, 80, 136] and [64, 136, 24], whose D and
+               F end inside a 64-wide k stage and a 128-column tile (the
+               kernel's zero-fills past D and F and its partial last k
+               step); chunk and
                decode attention at its H = KV = 16 geometry; then 2 layers
                fp32, CUDA binding against plain for prefill_into and decode
                (every call <= 1024 rows, where the plain binding is
@@ -107,10 +117,14 @@ Phases, each one printed line per case, each raising on failure:
                torch.cuda.set_sync_debug_mode("error"): it must read nothing
                back to the host; then full moonshot (48 layers, bf16, 57.8
                GB of seeded weights) serving the same 8 requests: run M
-               contiguous, one whole-prompt Model.prefill, and run MP paged
-               on 25 pages.  MP's tokens must equal M's; every run launches
-               exactly steps x 48 x 3 moe_gmm, steps x 48 attention and
-               steps x 97 rmsnorm.
+               contiguous, one whole-prompt Model.prefill (its 144 moe_gmm
+               launches all on the tensor-core kernel; timed beside the
+               plain binding's, host clock, synchronized, median of 3), and
+               run MP paged on 25 pages.  MP's tokens must equal M's; every
+               run launches exactly steps x 48 x 3 moe_gmm, steps x 48
+               attention and steps x 97 rmsnorm, its prefill steps' moe_gmm
+               all on the tensor-core kernel and its decode ticks' all on
+               the FMA kernel, as the library reported them (_gmm_by_kernel).
   8. ssm     — the Mamba-2 path, mamba2-780m (its kernel cases run with
                phase 3): ssd_scan against ssd_scan_ref at H = 48, P = 64,
                N = 128 — the serve chunk (S = chunk = 128), the same with dt
@@ -129,14 +143,16 @@ Phases, each one printed line per case, each raising on failure:
                exactly prefill steps x 48 ssd_scan (none in decode, which
                is plain code), steps x 49 rmsnorm and no attention.
 
-The line before the last is the kernels JSON (a flash entry also gives
-its launches by kernel, as the library reported them); the last line is
+The line before the last is the kernels JSON (a flash or moe_gmm entry
+also gives its launches by kernel, as the library reported them); the
+last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -192,6 +208,29 @@ def _flash_by_kernel(run: dict, op: str, want: str | None = None) -> dict:
     if want is not None and by_kernel[want] != total:
         fail("serve", f"{op} launches by kernel {by_kernel}: not all on the {want} kernel")
     return by_kernel
+
+
+def _gmm_by_kernel(run: dict) -> dict:
+    """A MoE serve run's moe_gmm launches by the kernel each took, as the
+    library reported it at the launch, over its prefill steps and its
+    decode ticks apart (`step_kernels`, counted around each step) and in
+    all.  Fails unless they add up to the op's count, every prefill launch
+    (a bf16 chunk of 128 tokens x top-6: at least E rows) took the
+    tensor-core kernel and every decode launch (4 slots x top-6: fewer
+    rows than experts) the FMA kernel."""
+    from repro_torch.kernels.moe_gmm import KERNELS
+
+    split = {kind: {k: run["step_kernels"][kind].get(("moe_gmm", k), 0) for k in KERNELS}
+             for kind in ("prefill", "decode")}
+    split["run"] = {k: split["prefill"][k] + split["decode"][k] for k in KERNELS}
+    total = run["launches"].get("moe_gmm", 0)
+    if sum(split["run"].values()) != total:
+        fail("moe-serve", f"moe_gmm launches {total} are not {split['run']}")
+    for kind, want in (("prefill", "tensor_core"), ("decode", "fma")):
+        if split[kind][want] != sum(split[kind].values()):
+            fail("moe-serve", f"moe_gmm {kind} launches by kernel {split[kind]}: not all on "
+                              f"the {want} kernel")
+    return split
 
 
 SEED = 0
@@ -1041,19 +1080,30 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     nonfinite = []
     step_s = {"prefill": [], "decode": []}   # host clock per step; each step ends
     prefill_step, decode_step = eng.prefill_step, eng.decode_step   # in a device sync
+    # launches by (op, kernel) as the library reported them, over the
+    # prefill steps and the decode ticks apart (counted outside the clock)
+    step_kernels = {"prefill": collections.Counter(), "decode": collections.Counter()}
+
+    def count_since(kind, before):
+        for key, n in _build.KERNEL_LAUNCHES.items():
+            step_kernels[kind][key] += n - before.get(key, 0)
 
     def checked_prefill(slot, tokens, pos):
+        before = dict(_build.KERNEL_LAUNCHES)
         t = time.perf_counter()
         out = prefill_step(slot, tokens, pos)
         step_s["prefill"].append(time.perf_counter() - t)
+        count_since("prefill", before)
         if not np.isfinite(out).all():
             nonfinite.append(("prefill", slot, pos))
         return out
 
     def checked_decode(tokens, pos, active):
+        before = dict(_build.KERNEL_LAUNCHES)
         t = time.perf_counter()
         out = decode_step(tokens, pos, active)
         step_s["decode"].append(time.perf_counter() - t)
+        count_since("decode", before)
         # parked rows' logits are garbage by contract: check the live ones
         if out.shape != (eng.slots, eng.model.padded_vocab) or not np.isfinite(out[active]).all():
             nonfinite.append(("decode", tuple(pos)))
@@ -1123,7 +1173,7 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
     if launches != {op: k for op, k in want.items() if k}:
         fail("serve", f"{label}: serve run launched {launches}, its steps need {want}")
     run = {"server": server, "reqs": reqs, "launches": launches,
-           "kernel_launches": kernel_launches, "stats": stats,
+           "kernel_launches": kernel_launches, "step_kernels": step_kernels, "stats": stats,
            "tokens": [list(r.tokens) for r in reqs], "steps": steps, "peak": peak,
            "median_ms": median_ms, "rows": (eng.chunk, eng.slots)}
     if cfg.family != "ssm":
@@ -1134,6 +1184,10 @@ def _drive(torch, np, cfg, container, label, *, params=None, **engine_kw) -> dic
                  (("chunk_attention", "tensor_core"), ("decode_attention", "split_decode"))}
         print(f"[serve] {label}: flash launches by kernel, as the library reported them: "
               f"{split}")
+    if cfg.num_experts:
+        run["moe_gmm_by_kernel"] = _gmm_by_kernel(run)
+        print(f"[serve] {label}: moe_gmm launches by kernel, as the library reported them: "
+              f"{run['moe_gmm_by_kernel']}")
     return run
 
 
@@ -1708,10 +1762,18 @@ def phase_kernels_moe(torch, flush) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention_ref import chunk_attention_ref, decode_attention_ref
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.moe_gmm_ref import moe_gmm_exact
+
+    def took(x, w, gs):
+        """moe_gmm(x, w, gs) and the kernel the library reported for it."""
+        before = dict(_build.KERNEL_LAUNCHES)
+        out = moe_gmm(x, w, gs)
+        new = [k for (op, k), n in _build.KERNEL_LAUNCHES.items()
+               if op == "moe_gmm" and n != before.get((op, k), 0)]
+        return out, new
 
     cfg = get_config(MOE_ARCH)
     d, e, f, k = cfg.d_model, cfg.num_experts, cfg.expert_d_ff, cfg.top_k
@@ -1720,43 +1782,90 @@ def phase_kernels_moe(torch, flush) -> dict:
     report = {}
     one = torch.zeros(e, dtype=torch.int32, device="cuda")
     one[17] = 768
-    # (label, group sizes): decode of 4 slots, a 128-token chunk, request
-    # 0's whole 1316-token prompt (above the plain binding's 1024-row
-    # dropless limit: the kernel stays dropless), every row in one expert
-    cases = [("T=24 decode", _routed_sizes(torch, gen, 4, e, k)),
-             ("T=768 chunk", _routed_sizes(torch, gen, 128, e, k)),
-             ("T=7896 whole prompt", _routed_sizes(torch, gen, 1316, e, k)),
-             ("T=768 one expert", one)]
+    # (label, group sizes, the kernel a bf16 launch takes; fp32 always
+    # takes "fma"): decode of 4 slots, a 128-token chunk, request 0's whole
+    # 1316-token prompt (above the plain binding's 1024-row dropless limit:
+    # the kernel stays dropless), every row in one expert
+    cases = [("T=24 decode", _routed_sizes(torch, gen, 4, e, k), "fma"),
+             ("T=768 chunk", _routed_sizes(torch, gen, 128, e, k), "tensor_core"),
+             ("T=7896 whole prompt", _routed_sizes(torch, gen, 1316, e, k), "tensor_core"),
+             ("T=768 one expert", one, "tensor_core")]
+    # the timed cases, and the kernels-line key of each at w_in's shape
+    timed = {"T=24 decode": "moe_gmm/decode", "T=768 chunk": "moe_gmm",
+             "T=7896 whole prompt": "moe_gmm/whole_prompt", "T=768 one expert": None}
+    # the tensor-core kernel's edges (bf16): T at the cut (E) and one below
+    # it, groups across its 16-row slices and 128-row tiles, every row in
+    # the last expert, and sizes summing short of T (tail rows zero); drawn
+    # from a generator of their own, so the timed cases keep their inputs
+    egen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cut = [torch.bincount(torch.randint(0, e, (n,), generator=egen, device="cuda"),
+                          minlength=e).to(torch.int32) for n in (e, e - 1)]
+    groups = torch.zeros(e, dtype=torch.int32, device="cuda")
+    groups[torch.tensor([3, 9, 10, 20, 40, 63])] = torch.tensor([1, 16, 17, 64, 65, 129],
+                                                                dtype=torch.int32,
+                                                                device="cuda")
+    last = torch.zeros(e, dtype=torch.int32, device="cuda")
+    last[e - 1] = 300
+    short = torch.zeros(e, dtype=torch.int32, device="cuda")
+    short[torch.tensor([0, 5, 6])] = torch.tensor([40, 100, 60], dtype=torch.int32,
+                                                  device="cuda")
+    short_label, short_t = "T=300, sizes summing to 200", 300
+    edges = [(f"T={e} at the cut", cut[0], "tensor_core"),
+             (f"T={e - 1} below the cut", cut[1], "fma"),
+             ("groups of 1/16/17/64/65/129", groups, "tensor_core"),
+             ("T=300 in the last expert", last, "tensor_core"),
+             (short_label, short, "tensor_core")]
+    # D and F ending inside a k stage and a column tile: D = 80 is one and
+    # a quarter 64-wide stages, 136 ends half-way through a k16 step; F =
+    # 136 fills 8 columns of a second 128-column tile, 24 three fragments
+    # of the first.  Moonshot's widths are whole tiles and stages
+    ragged = ((80, 136), (136, 24))
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).removeprefix("torch.")
         es = torch.empty((), dtype=dtype).element_size()
         peak = PEAK_BF16_TC if dn == "bfloat16" else PEAK_FP32
-        for din, dout in ((d, f), (f, d)):
+        for din, dout in ((d, f), (f, d)) + (ragged if dn == "bfloat16" else ()):
+            wide = (din, dout) not in ragged
             # the scaled init's spread, so fp32 sums over D stay inside TOLS
-            w = (torch.randn((e, din, dout), generator=gen, device="cuda") / din ** 0.5).to(dtype)
-            for label, gs in cases:
-                t = int(gs.sum())
-                x = torch.randn((t, din), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((e, din, dout), generator=gen if wide else egen, device="cuda")
+                 / din ** 0.5).to(dtype)
+            for label, gs, name in (cases if wide else []) + (edges if dn == "bfloat16" else []):
+                name = name if dn == "bfloat16" else "fma"
+                used_rows = int(gs.sum())
+                t = short_t if label == short_label else used_rows
+                x = torch.randn((t, din), generator=gen if label in timed else egen,
+                                device="cuda").to(dtype)
                 full = f"{label} w [{e}, {din}, {dout}]"
-                got = moe_gmm(x, w, gs)
+                got, kernel = took(x, w, gs)
                 want = moe_gmm_exact(x, w, gs)
                 err = _check("kernels", f"moe_gmm {full}", got, want, dn)
                 again = moe_gmm(x, w, gs)
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
                     fail("kernels", f"moe_gmm {full} {dn}: two launches differ")
+                if kernel != [name]:
+                    fail("kernels", f"moe_gmm {full} {dn}: the library reported {kernel}, "
+                                    f"not {name}")
+                if not got[used_rows:].eq(0).all():
+                    fail("kernels", f"moe_gmm {full} {dn}: rows past sum(group_sizes) not 0")
+                if label not in timed or not wide:
+                    print(f"[kernels] moe_gmm {full:<54} {dn:<8} max_abs_err {err:.3g} on "
+                          f"{kernel[0]}, launch pair equal")
+                    del x, got, again, want
+                    continue
                 lib = _library_gmm(torch, x, w, gs, want, dn)
                 used = int((gs > 0).sum())
                 nbytes = (t * din + t * dout) * es + used * din * dout * es + e * 4
-                _record(report, "moe_gmm", full + f" ({used} experts used)", dn, err,
+                _record(report, timed[label] or "moe_gmm",
+                        full + f" ({used} experts used, {kernel[0]})", dn, err,
                         time_ms(torch, lambda: moe_gmm(x, w, gs), flush),
                         time_ms(torch, lambda: moe_gmm_exact(x, w, gs), flush),
                         None if lib is None else time_ms(torch, lib, flush),
                         bound_ms(nbytes, 2 * t * din * dout, peak),
-                        dn == "bfloat16" and label == "T=768 chunk" and din == d)
+                        dn == "bfloat16" and din == d and timed[label] is not None)
                 del x, got, again, want
-            print(f"[kernels] moe_gmm {dn} w [{e}, {din}, {dout}]: every case bit-identical "
-                  "over two launches")
+            print(f"[kernels] moe_gmm {dn} w [{e}, {din}, {dout}]: every case within TOLS, "
+                  "bit-identical over two launches, on the kernel each case names")
             del w
 
         def randn(*shape):
@@ -1858,6 +1967,7 @@ def phase_serve_moe(torch) -> dict:
     from repro_torch.core.runtime import Runtime
     from repro_torch.kernels import _build
     from repro_torch.launch.bundle import make_bundle
+    from repro_torch.models.model import Model
 
     cfg = get_config(MOE_ARCH)
     print(f"[moe-serve] device memory allocated before the MoE runs: "
@@ -1876,6 +1986,7 @@ def phase_serve_moe(torch) -> dict:
     whole = eng.model.prefill({"tokens": first.prompt[None]})[0][0]
     torch.cuda.synchronize()
     whole_launches = dict(_build.LAUNCHES)
+    whole_kernels = {k: n for (op, k), n in _build.KERNEL_LAUNCHES.items() if op == "moe_gmm"}
     whole_np = whole.cpu().numpy()
     agree = int(np.argmax(whole_np)) == first.tokens[0]
     print(f"[moe-serve] Model.prefill of request 0 ({first.prompt_len} tokens, "
@@ -1887,8 +1998,30 @@ def phase_serve_moe(torch) -> dict:
         fail("moe-serve", "Model.prefill logits not finite or misshapen")
     if whole_launches != {"attention": n, "rmsnorm": 2 * n + 1, "moe_gmm": GMM_PER_LAYER * n}:
         fail("moe-serve", f"whole-prompt prefill launched {whole_launches}")
+    print(f"[moe-serve] Model.prefill of request 0: moe_gmm launches by kernel, as the library "
+          f"reported them: {whole_kernels}")
+    if whole_kernels != {"tensor_core": GMM_PER_LAYER * n}:
+        fail("moe-serve", f"whole-prompt moe_gmm launches {whole_kernels}: not all "
+                          f"{GMM_PER_LAYER * n} on the tensor-core kernel")
+    # the serve-level number moe_gmm's whole-prompt launches move, beside
+    # the same prefill through the plain binding (weights shared; above
+    # 1024 rows its moe_gmm is the capacity formulation, so only a scale)
+    runtime.cleanup()
+    plain = runtime.deploy(make_bundle(MOE_ARCH), device="cuda", native_ops=False)
+    m_plain = Model(cfg, plain.binding, device="cuda").load_params(
+        dict(eng.model.named_parameters()))
+    tokens = {"tokens": first.prompt[None]}
+    ms = {name: _median_ms(torch, lambda mdl=mdl: mdl.prefill(tokens))
+          for name, mdl in (("CUDA", eng.model), ("plain", m_plain))}
+    print(f"[moe-serve] Model.prefill of request 0 ({first.prompt_len} tokens), host clock, "
+          f"synchronized, median of 3: CUDA binding {ms['CUDA']:.1f} ms, plain binding "
+          f"{ms['plain']:.1f} ms")
+    del m_plain
+    runtime.cleanup()
+    container = runtime.deploy(make_bundle(MOE_ARCH), device="cuda")
     runs["M"] = m
-    runs["prefill"] = whole_launches
+    runs["prefill"] = {"launches": whole_launches,
+                       "by_kernel": {"fma": 0, "tensor_core": 0, **whole_kernels}}
     # run M's 57.8 GB of weights go before MP draws its own (the same seed,
     # so the same weights)
     del eng, whole
@@ -2199,9 +2332,14 @@ def main() -> int:
         for op in ("chunk_attention", "decode_attention"):
             entries.append((f"{op}/{form}", modes[run], op))
     entries.append(("windowed_attention", modes["windowed_attention"], "windowed_attention"))
+    fma = moe["M"]["moe_gmm_by_kernel"]["run"]["fma"]   # run M's decode launches
     entries += [("chunk_attention/mha16", moe["M"], "chunk_attention"),
                 ("decode_attention/mha16", moe["M"], "decode_attention"),
-                ("moe_gmm", moe["M"], "moe_gmm"),
+                ("moe_gmm", {"launches": moe["M"]["launches"],
+                             "by_kernel": moe["M"]["moe_gmm_by_kernel"]["run"]}, "moe_gmm"),
+                ("moe_gmm/decode", {"launches": {"moe_gmm": fma},
+                                    "by_kernel": {"fma": fma, "tensor_core": 0}}, "moe_gmm"),
+                ("moe_gmm/whole_prompt", moe["prefill"], "moe_gmm"),
                 ("quant_matmul", {"launches": {"quant_matmul": quant["Q8 by kernel"]["narrow"]}},
                  "quant_matmul"),
                 ("quant_matmul/chunk_w_in",
@@ -2223,6 +2361,8 @@ def main() -> int:
                  "result": "pass"}
         if kernel == "flash_attention":   # the op's launches by the kernel each took
             entry["by_kernel"] = _flash_by_kernel(run, op)
+        elif "by_kernel" in run:   # moe_gmm's, as the library reported them
+            entry["by_kernel"] = run["by_kernel"]
         kernels.append(entry)
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "still_to_port": STILL_TO_PORT}))

@@ -14,7 +14,7 @@ seconds.  A build failure raises.
 it launches its kernel and nowhere else, so a run can show that a path
 went through the kernels.  `KERNEL_LAUNCHES` counts them by (op, kernel)
 where the library reports which of its kernels it launched (the flash
-kernel's); `clear_launches` resets both.
+kernel's and moe_gmm's); `clear_launches` resets both.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_attention_workspace.argtypes = [i, i, i, i, i, i, i, i,
                                                     ctypes.POINTER(ctypes.c_longlong)]
     lib.repro_flash_attention_workspace.restype = i
-    lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p]
+    lib.repro_moe_gmm.argtypes = [i, p, p, p, p, ctypes.c_longlong, i, i, i, p, ip]
     lib.repro_moe_gmm.restype = i
     lib.repro_quant_matmul.argtypes = [i, i, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
     lib.repro_quant_matmul.restype = i

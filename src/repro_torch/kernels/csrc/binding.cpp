@@ -27,7 +27,8 @@ int repro_flash_attention_workspace_query(int dtype, int code, int dh, int b, in
                                           int h, int kv, long long* floats);
 
 int repro_moe_gmm_launch(int dtype, const void* x, const void* w, const int* group_sizes,
-                         void* out, long long t, int d, int f, int e, void* stream);
+                         void* out, long long t, int d, int f, int e, void* stream,
+                         int* kernel);
 
 int repro_quant_matmul_launch(int dtype, int code, const void* x, const void* q,
                               const float* scale, void* out, float* ws, long long t, int d,
@@ -85,10 +86,12 @@ int repro_flash_attention_occupancy(int dtype, int code, int dh, int sq, int pag
                                                rows, threads, resident);
 }
 
+// *kernel gets the kernel launched (0 the FMA kernel, 1 the tensor-core
+// kernel; -1 none).
 int repro_moe_gmm(int dtype, const void* x, const void* w, const void* group_sizes, void* out,
-                  long long t, int d, int f, int e, void* stream) {
+                  long long t, int d, int f, int e, void* stream, int* kernel) {
   return repro_moe_gmm_launch(dtype, x, w, static_cast<const int*>(group_sizes), out, t, d, f,
-                              e, stream);
+                              e, stream, kernel);
 }
 
 // ws may be null when splits == 1.

@@ -406,46 +406,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma_bf16;
+using repro::pack_bf16;
 using repro::smem_addr;
-
-// Byte offset of 16-byte chunk c of row r in a tile of `cpr` chunks a row
-// (a multiple of 8), chunk c stored at c ^ (r % 8).
-__device__ __forceinline__ uint32_t swz(int r, int c, int cpr) {
-  return static_cast<uint32_t>((r * cpr + (c ^ (r & 7))) << 4);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give the
-// row addresses of matrix i, and r[i] holds this lane's pair of it (row
-// lane / 4, columns 2 (lane % 4) + 0, 1), or with .trans of its transpose.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16, row-major fragment) * b (16 x 8,
-// bf16, column fragment b0 b1).  Lane l holds d rows l / 4 (d[0], d[1])
-// and l / 4 + 8 (d[2], d[3]), columns 2 (l % 4) + 0, 1.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats to a bf16 pair (lo in the low half), rounded to nearest even.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
+using repro::swz;
 
 // Two codes (the low bytes of t's 16-bit halves) to a bf16 pair, exactly.
 template <typename KV>

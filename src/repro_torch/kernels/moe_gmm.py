@@ -5,6 +5,17 @@ Replaces the Pallas TPU kernel ``repro/kernels/moe_gmm.py::moe_gmm``:
 ``group_sizes`` (E,) int32 partitioning them (sum == T), ``w`` (E, D, F);
 fp32 accumulation, output in x's dtype, dropless at any T.
 
+The library picks one of two kernels by x's dtype, T and E, and reports the
+kernel each launch took; the wrapper counts it by (op, kernel) in
+`_build.KERNEL_LAUNCHES` (names in `KERNELS`):
+
+  * ``tensor_core`` — bf16 with at least E rows (prefill chunks, whole
+    prompts): `mma.sync` bf16 products with fp32 sums over 128-row tiles
+    of one expert, the weights streamed through a ring of copies in
+    flight;
+  * ``fma`` — fp32, and bf16 with fewer rows than experts (decode):
+    fp32 FMAs.
+
 The arguments are checked as the kernel needs them on either device
 (rank, shapes, dtypes, one device, layout); then a CUDA tensor launches
 the kernel (or raises) and a CPU tensor takes the dropless plain version,
@@ -14,12 +25,16 @@ host: the kernel finds its tiles from them on the device.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gmm_ref import moe_gmm_exact
 
-__all__ = ["moe_gmm"]
+__all__ = ["moe_gmm", "KERNELS"]
+
+KERNELS = ("fma", "tensor_core")   # the library's kernel numbers, by name
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -47,9 +62,13 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
     if t == 0 or f == 0:
         return out                                                  # nothing to launch
     lib = _build.library()
+    took = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         err = lib.repro_moe_gmm(code, x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-                                out.data_ptr(), t, d, f, e, _build.stream_of(x))
+                                out.data_ptr(), t, d, f, e, _build.stream_of(x),
+                                ctypes.byref(took))
     _build.check(lib, err, "moe_gmm")
     _build.LAUNCHES["moe_gmm"] += 1
+    if took.value >= 0:
+        _build.KERNEL_LAUNCHES["moe_gmm", KERNELS[took.value]] += 1
     return out
